@@ -1,0 +1,77 @@
+"""The state carry between the JAX package's ``TreeArena`` and the port's.
+
+A search tree is this system's state, as weights are a model's: to start
+both implementations from the same mid-search tree, a JAX arena's leaves
+are taken as numpy arrays (``{field: np.asarray(...)}``, with ``state`` a
+dict of the domain state's leaves) and turned into the port's arena, and
+back.  Only numpy crosses the boundary, so this module imports no JAX.
+
+Field layout: the JAX arena's planes are ``[N]`` / ``[N, A]`` with scalar
+``next_free`` / ``free_top``; a ``search_batch`` result adds a leading
+batch axis.  The port's planes always carry the batch axis.  The P-game
+``hash`` is uint32 in JAX and int64 in the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.arena import TreeArena
+
+PLANES = ("visits", "value", "vloss", "unobs", "parent", "action",
+          "children", "prior", "terminal", "next_free", "free_list",
+          "free_top")
+
+_UINT32_STATE = ("hash",)      # uint32 state leaves, held in int64 here
+_DTYPES = {"visits": torch.int32, "value": torch.float32,
+           "vloss": torch.int32, "unobs": torch.int32,
+           "parent": torch.int32, "action": torch.int32,
+           "children": torch.int32, "prior": torch.float32,
+           "terminal": torch.bool, "next_free": torch.int32,
+           "free_list": torch.int32, "free_top": torch.int32}
+
+
+def _state_to_torch(x: np.ndarray) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype == np.uint32:
+        x = x.astype(np.int64)
+    return torch.from_numpy(np.array(x))
+
+
+def _field(planes, name: str):
+    if isinstance(planes, Mapping):
+        return planes[name]
+    return getattr(planes, name)
+
+
+def arena_from_numpy(planes, device="cpu") -> TreeArena:
+    """The port's arena from numpy planes — a mapping of field names, or an
+    object with those attributes (a JAX ``TreeArena`` whose leaves are numpy
+    arrays).  Unbatched planes (``children`` ``[N, A]``) get a batch axis of
+    one."""
+    batched = np.asarray(_field(planes, "children")).ndim == 3
+    lift = (lambda t: t) if batched else (lambda t: t[None])
+    fields = {f: lift(torch.from_numpy(np.array(_field(planes, f)))
+                      .to(_DTYPES[f])).to(device)
+              for f in PLANES}
+    state = {k: lift(_state_to_torch(v)).to(device)
+             for k, v in _field(planes, "state").items()}
+    return TreeArena(state=state, **fields)
+
+
+def arena_to_numpy(arena: TreeArena, *,
+                   batched: bool = True) -> Dict[str, Any]:
+    """Numpy planes of the port's arena.  ``batched=False`` drops the batch
+    axis of a one-root arena; the P-game ``hash`` goes back to uint32."""
+    if not batched and arena.batch != 1:
+        raise ValueError(f"batched=False needs one root, got {arena.batch}")
+    take = (lambda t: t) if batched else (lambda t: t[0])
+    out = {f: take(getattr(arena, f)).cpu().numpy() for f in PLANES}
+    state = {}
+    for k, v in arena.state.items():
+        x = take(v).cpu().numpy()
+        state[k] = x.astype(np.uint32) if k in _UINT32_STATE else x
+    out["state"] = state
+    return out

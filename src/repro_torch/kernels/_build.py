@@ -1,0 +1,138 @@
+"""Build, load and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface under ``build/repro_torch/`` at the repository
+root, at first use, and loaded with ``ctypes``.  No PyTorch header is
+included, so a build takes seconds.  Flags: ``sm_90a``, ``-O3``,
+``-fmad=false`` and no fast math — the UCT scores must round as the plain
+PyTorch version's separate tensor ops do, or argmax decisions flip on near
+ties.
+
+``build_all()`` compiles every source at once, one ``nvcc`` process per
+source.  A library is rebuilt when a source it depends on is newer.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("uct_select", "search_wave")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the repro_torch kernels")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return lib.stat().st_mtime < newest
+
+
+def _start(name: str) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.tmp = tmp
+    return proc
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(proc.tmp, _lib_path(name))
+    return out
+
+
+def build_all(force: bool = False) -> Dict[str, str]:
+    """Compile every stale source in parallel; returns ``{name: nvcc log}``
+    for the sources built."""
+    with _lock:
+        names: List[str] = [s for s in SOURCES if force or _stale(s)]
+        procs = {s: _start(s) for s in names}
+        return {s: _finish(s, p) for s, p in procs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built when stale)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            if _stale(name):
+                proc = _start(name)
+                _finish(name, proc)
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
+def bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """Declare a C entry point returning a ``cudaError_t`` as int."""
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def resolve_impl(impl, t: torch.Tensor) -> str:
+    """"cuda" for CUDA tensors, "ref" for CPU ones; an explicit "cuda"
+    request on CPU tensors raises."""
+    if impl is None:
+        return "cuda" if t.is_cuda else "ref"
+    if impl not in ("cuda", "ref"):
+        raise ValueError(f"impl must be 'cuda' or 'ref', got {impl!r}")
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError("the CUDA kernel needs CUDA tensors, got "
+                         f"{t.device}")
+    return impl
+
+
+def check_operand(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

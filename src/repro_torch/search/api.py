@@ -1,0 +1,243 @@
+"""The public search API — the PyTorch counterpart of ``repro.search.api``.
+
+    from repro_torch.search import SearchConfig, search, search_batch
+
+    res = search(domain, SearchConfig(method="pipeline", budget=256,
+                                      lanes=8), rng=0)
+    res.best_action          # recommended root action (robust child)
+    res.action_visits        # [A] root child visit counts
+    res.stats                # common schema, identical keys for all methods
+
+Device: the entry points run on ``cuda:0`` unless the caller passes
+``device=`` (``device="cpu"`` runs the plain PyTorch versions of the
+kernels).  With no CUDA device and no explicit device they raise; they
+never fall back to the CPU.
+
+Randomness: every playout's randomness is an explicit draw tensor.  ``rng``
+is either such a tensor, shaped ``draws_shape(domain, cfg)`` for ``search``
+and ``(B,) + draws_shape(domain, cfg)`` for ``search_batch``, or a seed /
+``torch.Generator`` from which the draws are made on the CPU (so the same
+seed gives the same search on every device).
+
+``search_batch`` runs B searches of ONE domain (each under its own draws)
+as one batched program: every arena plane carries a leading batch axis.
+Strategies register ``fn(domain, cfg, draws, device)`` with the trailing
+draw shape they consume, and return batched ``SearchResult``s.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch.core.stages import SearchParams
+from repro_torch.core.tree import Tree, root_child_stats
+from repro_torch.search.domain import Domain, missing_members
+
+__all__ = [
+    "STATS_KEYS", "SearchConfig", "SearchResult", "StrategyFn",
+    "register_strategy", "get_strategy", "list_strategies", "draws_shape",
+    "make_stats", "result_from_tree", "resolve_device", "search",
+    "search_batch",
+]
+
+STATS_KEYS = ("playouts", "playouts_requested", "playouts_completed",
+              "duplicates", "ticks")
+
+StrategyFn = Callable[..., "SearchResult"]
+
+_STRATEGIES: Dict[str, StrategyFn] = {}
+_DRAWS: Dict[str, Callable[[Any, "SearchConfig"], tuple]] = {}
+
+
+class SearchResult(NamedTuple):
+    """Standardized result — identical field set for every strategy.
+
+    ``tree`` is the batched arena for single-tree strategies, ``None`` for
+    root parallelization or when ``keep_tree`` is False.  ``stats`` carries
+    exactly ``STATS_KEYS`` (int32); ``extras`` holds per-strategy
+    diagnostics."""
+
+    action_visits: torch.Tensor        # [(B,) A] i32
+    action_value: torch.Tensor         # [(B,) A] f32
+    best_action: torch.Tensor          # [(B,)] i32
+    tree: Optional[Tree]
+    stats: Dict[str, torch.Tensor]
+    extras: Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """One config for all strategies (see ``repro.search.api.SearchConfig``).
+    ``kernels`` / ``wave_select`` / ``vl_mode`` / ``level_assign`` other
+    than their defaults are forwarded into ``params``."""
+
+    method: str = "sequential"
+    budget: int = 256
+    lanes: int = 1
+    max_nodes: int = 0
+    keep_tree: bool = True
+    params: SearchParams = dataclasses.field(default_factory=SearchParams)
+    kernels: str = "auto"
+    wave_select: str = "auto"
+    vl_mode: str = "loss"
+    level_assign: str = "independent"
+
+    def __post_init__(self):
+        upd = {}
+        if self.kernels != "auto" and self.params.kernels == "auto":
+            upd["kernels"] = self.kernels
+        if self.wave_select != "auto" and self.params.wave_select == "auto":
+            upd["wave_select"] = self.wave_select
+        if self.vl_mode != "loss" and self.params.vl_mode == "loss":
+            upd["vl_mode"] = self.vl_mode
+        if self.level_assign != "independent" \
+                and self.params.level_assign == "independent":
+            upd["level_assign"] = self.level_assign
+        if upd:
+            object.__setattr__(
+                self, "params", dataclasses.replace(self.params, **upd))
+
+
+# ---------------------------------------------------------------------------
+# strategy registry
+# ---------------------------------------------------------------------------
+def register_strategy(name: str, *, draws: Callable[[Any, SearchConfig],
+                                                    tuple]):
+    """Decorator: register ``fn(domain, cfg, draws, device)`` under
+    ``name``; ``draws(domain, cfg)`` gives the shape of one search's draw
+    tensor.  Re-registering a name overwrites it."""
+    def deco(fn: StrategyFn) -> StrategyFn:
+        _STRATEGIES[name] = fn
+        _DRAWS[name] = draws
+        return fn
+    return deco
+
+
+def get_strategy(name: str) -> StrategyFn:
+    _ensure_builtin_strategies()
+    try:
+        return _STRATEGIES[name]
+    except KeyError:
+        raise ValueError(f"unknown search method {name!r}; "
+                         f"registered: {list_strategies()}") from None
+
+
+def list_strategies() -> List[str]:
+    _ensure_builtin_strategies()
+    return sorted(_STRATEGIES)
+
+
+def draws_shape(domain, cfg: SearchConfig) -> tuple:
+    """Shape of one search's draw tensor under ``cfg.method``."""
+    get_strategy(cfg.method)
+    return tuple(_DRAWS[cfg.method](domain, cfg))
+
+
+def _ensure_builtin_strategies() -> None:
+    from repro_torch.search import strategies  # noqa: F401
+
+
+# ---------------------------------------------------------------------------
+# result assembly helpers (used by strategies.py)
+# ---------------------------------------------------------------------------
+def make_stats(batch: int, requested, completed, duplicates, ticks,
+               device) -> Dict[str, torch.Tensor]:
+    as_b = lambda x: torch.as_tensor(x, device=device).to(torch.int32) \
+        .expand(batch).clone()
+    completed = as_b(completed)
+    return {"playouts": completed, "playouts_requested": as_b(requested),
+            "playouts_completed": completed.clone(),
+            "duplicates": as_b(duplicates), "ticks": as_b(ticks)}
+
+
+def result_from_tree(tree: Tree, stats, extras=None) -> SearchResult:
+    n, w, valid = root_child_stats(tree)
+    best = torch.argmax(torch.where(valid, n, -1), dim=-1).int()
+    return SearchResult(action_visits=n.int(), action_value=w,
+                        best_action=best, tree=tree, stats=stats,
+                        extras=extras or {})
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+def resolve_device(device=None) -> torch.device:
+    """``cuda:0`` by default; raises when there is no CUDA device and the
+    caller did not ask for one explicitly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device by default and "
+                           "none is available; pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return torch.device("cuda", 0)
+
+
+def _draws(domain, cfg, rng, lead: tuple, device) -> torch.Tensor:
+    shape = lead + draws_shape(domain, cfg)
+    if isinstance(rng, torch.Tensor):
+        if tuple(rng.shape) != shape:
+            raise ValueError(f"draws for method {cfg.method!r} must have "
+                             f"shape {shape}, got {tuple(rng.shape)}")
+        return rng.to(device)
+    gen = rng
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(rng))
+    lead_shape = shape[:len(shape) - len(domain.draw_shape)]
+    return domain.sample_draws(lead_shape, gen, "cpu").to(device)
+
+
+def _run(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+    res = get_strategy(cfg.method)(domain, cfg, draws, device)
+    missing = set(STATS_KEYS) ^ set(res.stats)
+    if missing:
+        raise RuntimeError(f"strategy {cfg.method!r} broke the common stats "
+                           f"schema (symmetric difference: {sorted(missing)})")
+    if not cfg.keep_tree:
+        res = res._replace(tree=None)
+    return res
+
+
+def _check(domain) -> None:
+    if not isinstance(domain, Domain):
+        raise TypeError(
+            f"{type(domain).__name__} does not satisfy the Domain protocol "
+            f"(missing {missing_members(domain)}); see repro_torch.search."
+            "domain")
+
+
+def search(domain, cfg: SearchConfig, rng, *, device=None) -> SearchResult:
+    """Run one search.  The result has no batch axis, except ``tree``,
+    which is the arena with a batch of one."""
+    _check(domain)
+    dev = resolve_device(device)
+    draws = _draws(domain, cfg, rng, (), dev)[None]
+    res = _run(domain, cfg, draws, dev)
+    first = lambda d: {k: v[0] if isinstance(v, torch.Tensor) else v
+                       for k, v in d.items()}
+    return res._replace(action_visits=res.action_visits[0],
+                        action_value=res.action_value[0],
+                        best_action=res.best_action[0],
+                        stats=first(res.stats), extras=first(res.extras))
+
+
+def search_batch(domains: Sequence[Any], cfg: SearchConfig, rng, *,
+                 device=None) -> SearchResult:
+    """B searches of one domain, each under its own draws, as one batched
+    program; every result leaf gains a leading batch axis.  With draw
+    tensors, ``search_batch(ds, cfg, draws)[i] == search(ds[i], cfg,
+    draws[i])``.  Domains that differ raise TypeError: P-game batches are
+    batches of one game under B draw streams."""
+    domains = list(domains)
+    if not domains:
+        raise ValueError("search_batch needs at least one domain")
+    d0 = domains[0]
+    _check(d0)
+    if any(d is not d0 and d != d0 for d in domains[1:]):
+        raise TypeError("search_batch takes B copies of one domain; got "
+                        "domains that differ")
+    dev = resolve_device(device)
+    draws = _draws(d0, cfg, rng, (len(domains),), dev)
+    return _run(d0, cfg, draws, dev)

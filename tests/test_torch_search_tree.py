@@ -1,0 +1,19 @@
+"""Port parity of the ``tree`` strategy with ``wave_select`` "scan" or "lockstep"
+over ``vl_mode`` x ``level_assign`` at lanes 1 and 4, against
+``repro.search`` on the CPU with JAX-drawn playout actions."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_parity import (assert_search_equal, run_pair,  # noqa: E402
+                          search_grid)
+
+
+@pytest.mark.parametrize("wave_select,vl_mode,level_assign,lanes",
+                         search_grid(("scan", "lockstep")))
+def test_tree_strategy_matches(wave_select, vl_mode, level_assign,
+                               lanes):
+    jres, tres = run_pair("tree", lanes, budget=48, seed=2, binary=False,
+                          wave_select=wave_select, vl_mode=vl_mode,
+                          level_assign=level_assign)
+    assert_search_equal(jres, tres, msg=f"tree {wave_select} ")
