@@ -160,6 +160,16 @@ def search_grid(wave_selects):
     return cells
 
 
+def redundant_grid_cells():
+    """The cells ``search_grid`` leaves out because they repeat another
+    cell by construction (running at one lane or under "scan")."""
+    full = [(ws, vl, la, lanes) for ws in ("scan", "lockstep", "mega")
+            for vl in ("loss", "wu") for la in ("independent", "running")
+            for lanes in (1, 4)]
+    kept = set(search_grid(("scan", "lockstep", "mega")))
+    return [c for c in full if c not in kept]
+
+
 SEARCH_A, SEARCH_D = 4, 6
 
 
@@ -179,11 +189,19 @@ def search_configs(method, lanes, budget, **kw):
                          params=SearchParams(kernels="ref", **kw)))
 
 
+def port_search(method, lanes, budget=64, seed=0, binary=True, **kw):
+    """The port's search on the CPU under the draws JAX makes from
+    ``jax.random.key(seed)``."""
+    _, td = search_domains(binary)
+    _, tc = search_configs(method, lanes, budget, **kw)
+    draws = jax_draws(jax.random.key(seed), draws_shape(td, tc)[:-1],
+                      SEARCH_D, SEARCH_A)
+    return search(td, tc, draws, device="cpu")
+
+
 def run_pair(method, lanes, budget=64, seed=0, binary=True, **kw):
     """One JAX search and its port on the CPU under the same JAX draws."""
-    jd, td = search_domains(binary)
-    jc, tc = search_configs(method, lanes, budget, **kw)
-    rng = jax.random.key(seed)
-    jres = jsearch(jd, jc, rng)
-    draws = jax_draws(rng, draws_shape(td, tc)[:-1], SEARCH_D, SEARCH_A)
-    return jres, search(td, tc, draws, device="cpu")
+    jd, _ = search_domains(binary)
+    jc, _ = search_configs(method, lanes, budget, **kw)
+    jres = jsearch(jd, jc, jax.random.key(seed))
+    return jres, port_search(method, lanes, budget, seed, binary, **kw)
