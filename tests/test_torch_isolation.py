@@ -143,3 +143,69 @@ def test_search_batch_on_card_equals_cpu(method, wave_select, vl_mode,
                                getattr(c.tree, f.name)), f.name
     torch.testing.assert_close(g.tree.value.cpu(), c.tree.value,
                                rtol=1e-6, atol=1e-5)
+
+
+def _copy_to(tree, dev):
+    return dataclasses.replace(
+        tree, **{f.name: ({k: v.to(dev, copy=True)
+                           for k, v in tree.state.items()}
+                          if f.name == "state" else
+                          getattr(tree, f.name).to(dev, copy=True))
+                 for f in dataclasses.fields(tree)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vl_mode", ["loss", "wu"])
+def test_free_list_pops_and_full_arena_on_card(vl_mode):
+    """The kernels pop parked free-list rows before the bump and stop
+    expanding in a full arena exactly as the plain version does."""
+    from repro_torch.core.tree import init_tree
+    from repro_torch.kernels.search_wave import ops as wops
+    dev = _card()
+    sp = SearchParams(cp=0.7, max_depth=5, vl_mode=vl_mode,
+                      level_assign="running", wave_select="mega")
+    gen = torch.Generator().manual_seed(0)
+    tree = init_tree(DOM, 24)
+    for _ in range(2):
+        tree, _ = wops.tree_round(tree, DOM, sp, 4, True,
+                                  DOM.sample_draws((1, 4), gen))
+    nf = int(tree.next_free[0])
+    tree.free_list[0, :3] = torch.tensor([nf + 2, nf, nf + 1])
+    tree.free_top.fill_(3)
+    tree.next_free.fill_(nf + 3)
+    kern, plain = _copy_to(tree, dev), _copy_to(tree, dev)
+    for _ in range(5):
+        draws = DOM.sample_draws((1, 4), gen).to(dev)
+        kern, ks = wops.tree_round(kern, DOM, sp, 4, True, draws)
+        plain, ps = wops.tree_round(plain, DOM, sp, 4, True, draws,
+                                    impl="ref")
+        for f in dataclasses.fields(kern):
+            if f.name not in ("state", "value", "prior"):
+                assert torch.equal(getattr(kern, f.name),
+                                   getattr(plain, f.name)), f.name
+        assert torch.equal(ks["path"], ps["path"])
+    assert int(kern.free_top[0]) == 0 and int(kern.next_free[0]) == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,wave_select,vl_mode,level_assign", [
+    ("pipeline", "mega", "wu", "running"),
+    ("tree", "mega", "loss", "independent"),
+    ("pipeline", "lockstep", "loss", "running")])
+def test_wide_waves_on_card_equal_cpu(method, wave_select, vl_mode,
+                                      level_assign):
+    """More than a warp of lanes and of children, terminal leaves within
+    max_depth, and an arena that fills up mid-search."""
+    dev = _card()
+    dom = PGameDomain(num_actions=40, game_depth=4, binary_reward=False)
+    cfg = SearchConfig(method=method, budget=200, lanes=40, max_nodes=90,
+                       params=SearchParams(cp=0.7, max_depth=6,
+                                           wave_select=wave_select,
+                                           vl_mode=vl_mode,
+                                           level_assign=level_assign))
+    g = search_batch([dom] * 2, cfg, 3, device=dev)
+    c = search_batch([dom] * 2, cfg, 3, device="cpu")
+    assert torch.equal(g.action_visits.cpu(), c.action_visits)
+    assert torch.equal(g.tree.children.cpu(), c.tree.children)
+    assert torch.equal(g.tree.visits.cpu(), c.tree.visits)
+    assert int(c.tree.next_free.min()) == 90

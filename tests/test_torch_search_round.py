@@ -80,6 +80,36 @@ def test_tree_round_matches_pallas(lanes, vl_mode, level_assign):
 
 
 @pytest.mark.parametrize("vl_mode", ["loss", "wu"])
+def test_tree_round_pops_free_list_then_fills_the_arena(vl_mode):
+    """Rows come off the free list (LIFO) before the ``next_free`` bump,
+    and the trailing lanes stop expanding once the arena is full."""
+    jsp, tsp = _params(vl_mode, "running")
+    lanes, nodes = 4, 24
+    rnd = jax.jit(lambda t, r: jops.tree_round(
+        t, JDOM, jsp, lanes, jnp.asarray(True), r, impl="pallas",
+        interpret=True))
+    rngs = jax.random.split(jax.random.key(7), 7)
+    jt = j_init_tree(JDOM, nodes)
+    for t in range(2):
+        jt, _ = rnd(jt, rngs[t])
+    nf = int(jt.next_free)
+    # park three never-used rows on the free list, past the bump mark
+    jt = jt.replace(
+        free_list=jt.free_list.at[:3].set(
+            jnp.asarray([nf + 2, nf, nf + 1], jnp.int32)),
+        free_top=jnp.int32(3), next_free=jnp.int32(nf + 3))
+    tts = [to_port(jt), to_port(jt)]
+    for t in range(2, 7):
+        draws = jax_draws(rngs[t], (lanes,), D, A)[None]
+        jt, jsel = rnd(jt, rngs[t])
+        for i, fn in enumerate((tops.tree_round, tref.tree_round)):
+            tts[i], tsel = fn(tts[i], TDOM, tsp, lanes, True, draws)
+            assert_arena_equal(jt, tts[i], msg=f"round {t} #{i} ")
+            assert_buf_equal(jsel, tsel, SEL, msg=f"round {t} ")
+    assert int(jt.free_top) == 0 and int(jt.next_free) == nodes
+
+
+@pytest.mark.parametrize("vl_mode", ["loss", "wu"])
 def test_apply_es_completes_the_structural_expand(vl_mode):
     """``_apply_es`` (the kernel path's out-of-launch half) turns a tree
     whose children / in-flight planes the launch already wrote into the
