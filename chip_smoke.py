@@ -223,7 +223,8 @@ def phase_kernels(dev):
     from repro_torch.kernels.search_wave import ops as W
     from repro_torch.kernels.uct_select import ops as U
     results = {}
-    lanes, a, p = FULL["lanes"], FULL["num_actions"], FULL["max_depth"] + 2
+    lanes, a = FULL["lanes"], FULL["num_actions"]
+    reset_launches()
     for mode, assign in (("loss", "independent"), ("wu", "running")):
         sp = search_params(FULL, vl_mode=mode, level_assign=assign,
                            kernels="cuda")
@@ -332,8 +333,10 @@ def phase_kernels(dev):
         del dom, tree, se, ep, pb
     worst = {k: max(results[t][k][0] for t in results)
              for k in results["loss/independent"]}
-    say("kernels " + " ".join(f"{k}:max_abs_err={v}" for k, v in
-                              worst.items()) + " (vs plain, full size)")
+    counts = all_launches()
+    say("kernels " + " ".join(f"{k}:max_abs_err={v},launches={counts[k]}"
+                              for k, v in worst.items())
+        + " (vs plain at full size; launches of this phase)")
     return results
 
 
@@ -402,6 +405,10 @@ FULL_RUNS = [("pipeline", "mega", "loss", "independent"),
              ("tree", "mega", "loss", "independent"),
              ("pipeline", "lockstep", "loss", "independent"),
              ("pipeline", "lockstep", "wu", "running")]
+# the kernels each full-size run must launch
+RUN_KERNELS = {("pipeline", "mega"): ("bes",), ("tree", "mega"): ("se", "b"),
+               ("pipeline", "lockstep", "independent"): ("uct_argmax_tiles",),
+               ("pipeline", "lockstep", "running"): ("uct_argmax_running",)}
 
 
 def all_launches():
@@ -446,9 +453,14 @@ def phase_full(dev):
                   "visit_flow"):
             if not bool(cons[k].all()):
                 fail(f"{what}: invariant {k} broken")
+        launched = {k: after[k] - before[k] for k in after}
+        need = RUN_KERNELS.get((m, ws)) or RUN_KERNELS[(m, ws, la)]
+        for k in need:
+            if launched[k] == 0:
+                fail(f"{what}: kernel {k} was not launched")
         rate = FULL["batch"] * FULL["budget"] / secs
         runs.append({"run": what, "seconds": secs, "playouts_per_s": rate,
-                     "launches": {k: after[k] - before[k] for k in after},
+                     "launches": launched,
                      "nodes_mean": float(cons["nodes"].float().mean()),
                      "dup_mean": float(res.stats["duplicates"]
                                        .float().mean())})
