@@ -10,18 +10,27 @@ Phases; each prints one line and any mismatch or error exits non-zero:
 
   1. env      the card's name and power limit, torch's device name
   2. build    nvcc of every ``src/repro_torch/csrc/*.cu``, in parallel
-  3. kernels  each kernel wrapper against its plain PyTorch version on the
-              same full-size arena snapshots, taken mid-search from a run of
-              the plain path; integers must be equal, ``value`` within
-              VALUE_RTOL; CUDA-event times of kernel and plain version
-  4. small    ``search_batch`` through the kernels on the card equals the
-              plain versions on the CPU under the same draws
-  5. full     the main path at full size (FULL below): pipeline / tree with
-              the fused wave and the lockstep select, both vl_modes and
-              both level_assigns; invariants, launch counts, playouts/s
-  6. profile  device busy share and time by kernel of the fused full-size
-              runs (torch.profiler), table in ``chiprun_out/profile.txt``
-  7. report   the kernels' JSON line, the card line, the last line
+  3. kernels  the search kernels (K1, K2) against their plain PyTorch
+              versions on the same full-size arena snapshots, taken
+              mid-search from a run of the plain path; integers must be
+              equal, ``value`` within VALUE_RTOL; CUDA-event times
+  4. attn     the attention kernels (K4 flash, K3 flash-decode) against
+              their plain versions at the LM path's full-size shapes in
+              bf16 and small shapes in float32; times beside PyTorch's SDPA
+  5. small    P-game ``search_batch`` and LM ``mcts_decode_batch`` (float32
+              smoke model) through the kernels on the card equal the plain
+              versions on the CPU
+  6. full     the P-game main path at full size (FULL below): pipeline /
+              tree with the fused wave and the lockstep select, both
+              vl_modes and both level_assigns; then the LM main path
+              (LM_FULL: smollm-135m, 16 ragged prompts, 8 tokens each);
+              invariants, launch counts against those each path implies,
+              playouts/s, tokens/s; K1b against its plain version at the
+              LM path's shapes (PUCT rows)
+  7. profile  device busy share and time by kernel of the fused P-game
+              runs and of one LM token's search (torch.profiler), tables
+              in ``chiprun_out/profile.txt`` and ``profile_lm.txt``
+  8. report   the kernels' JSON line, the card line, the last line
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
 """
@@ -98,8 +107,10 @@ def compare_trees(what, t1, t2) -> float:
         if k != "accum" and max_diff(t1.state[k], t2.state[k]) != 0:
             fail(f"{what}: state {k} differs")
     dv = 0.0
-    for a, b in ((t1.value, t2.value), (t1.prior, t2.prior),
-                 (t1.state["accum"], t2.state["accum"])):
+    floats = [(t1.value, t2.value), (t1.prior, t2.prior)]
+    if "accum" in t1.state:                # the P-game's float state leaf
+        floats.append((t1.state["accum"], t2.state["accum"]))
+    for a, b in floats:
         d = max_diff(a, b)
         a, b = a.detach().cpu().double(), b.detach().cpu().double()
         if not bool(((a - b).abs() <= VALUE_RTOL * b.abs().clamp_min(1.0))
@@ -139,8 +150,9 @@ def cuda_time(fn, reps=TIMING_REPS, setup=None) -> float:
     return total / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = F32_FLOPS):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -197,7 +209,7 @@ def snapshot(dev, sp, ticks, seed):
     n = FULL["budget"] + 2
     tree = init_tree(dom, n, batch=bsz, device=dev)
     se = S.empty_selection(sp, bsz, lanes, dev)
-    ep = S.empty_expansion(sp, bsz, lanes, dom, dev)
+    ep = S.empty_expansion(sp, tree, lanes)
     pb = S.empty_playout(sp, bsz, lanes, dom.num_actions, dev)
     gen = torch.Generator().manual_seed(seed)
     draws = dom.sample_draws((bsz, ticks, lanes), gen).to(dev)
@@ -411,16 +423,20 @@ RUN_KERNELS = {("pipeline", "mega"): ("bes",), ("tree", "mega"): ("se", "b"),
                ("pipeline", "lockstep", "running"): ("uct_argmax_running",)}
 
 
-def all_launches():
+def _launch_counters():
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.search_wave import ops as W
     from repro_torch.kernels.uct_select import ops as U
-    return {**W.launches, **U.launches}
+    return (W.launches, U.launches, FA.launches, DA.launches)
+
+
+def all_launches():
+    return {k: v for d in _launch_counters() for k, v in d.items()}
 
 
 def reset_launches():
-    from repro_torch.kernels.search_wave import ops as W
-    from repro_torch.kernels.uct_select import ops as U
-    for d in (W.launches, U.launches):
+    for d in _launch_counters():
         for k in d:
             d[k] = 0
 
@@ -466,7 +482,7 @@ def phase_full(dev):
                                        .float().mean())})
     counts = all_launches()                # read just after the main path
     for k, v in counts.items():
-        if v == 0:
+        if v == 0 and k in SOURCES and k not in LM_KERNELS:
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
@@ -476,54 +492,450 @@ def phase_full(dev):
     return runs, counts
 
 
-def phase_profile(dev):
-    """Where the time goes on the fused full-size runs: one traced run of
-    each, device time by kernel (torch.profiler over CUPTI) against the
-    untraced wall time; the table goes to ``chiprun_out/profile.txt``.  The
-    lockstep runs are left out: tracing their ~10^5 small launches takes
-    minutes."""
+def profile_one(what: str, run):
+    """Wall time of ``run()`` untraced (after a warm run), then one run
+    traced by torch.profiler (CUPTI).  Device busy time is the sum over
+    the device's own events (kernels, copies, sets); an operator's self
+    device time repeats its kernels' and is listed beside them, not summed
+    (PyTorch's own table sums the same way).  Returns ``(summary, table
+    lines)``, or ``(None, [])`` when the trace holds no device event."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern, ops = {}, {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            side = ops if e.device_type == DeviceType.CPU else kern
+            side[e.key] = (e.self_device_time_total, e.count)
+    if not kern:
+        say(f"profile {what}: device time not measured (no CUDA events)")
+        return None, []
+    busy = sum(us for us, _ in kern.values()) / 1e6
+    top_k = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    top_o = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
+    lines = [f"{what}: wall {wall:.4f} s untraced, device busy {busy:.4f} s "
+             f"({100 * busy / wall:.1f}% of wall), "
+             f"{sum(c for _, c in kern.values())} device events",
+             "  top device events:"]
+    lines += [f"    {us / 1e3:10.3f} ms  {c:7d}x  {k[:90]}"
+              for k, (us, c) in top_k]
+    lines.append("  top operators by self device time (their kernels are "
+                 "among the events above):")
+    lines += [f"    {us / 1e3:10.3f} ms  {c:7d}x  {k[:90]}"
+              for k, (us, c) in top_o]
+    say(f"profile {what} wall={wall:.3f}s busy={busy:.3f}s "
+        f"idle={100 * (1 - busy / wall):.1f}% top={top_k[0][0][:40]}")
+    return {"wall_s": wall, "busy_s": busy,
+            "device_events": sum(c for _, c in kern.values()),
+            "top_events": [(k, us, c) for k, (us, c) in top_k],
+            "top_ops": [(k, us, c) for k, (us, c) in top_o]}, lines
+
+
+def write_out(name: str, lines) -> None:
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / name).write_text("\n".join(lines) + "\n")
+
+
+def phase_profile(dev):
+    """Where the time goes on the fused full-size P-game runs (table in
+    ``chiprun_out/profile.txt``).  The lockstep runs are left out: tracing
+    their ~10^5 small launches takes minutes."""
     lines, shares = [], {}
     for m, ws, vl, la in FULL_RUNS:
         if ws != "mega":
             continue
         d = draws_for(FULL, m, 1000).to(dev)
-        run_batch(dev, FULL, m, ws, vl, la, d)           # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_batch(dev, FULL, m, ws, vl, la, d)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_batch(dev, FULL, m, ws, vl, la, d)
-            torch.cuda.synchronize()
-        dev_us = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                dev_us[e.key] = (us, e.count)
-        busy = sum(us for us, _ in dev_us.values()) / 1e6
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:8]
         what = f"{m}/{ws}/{vl}/{la}"
-        if not top:
-            say(f"profile {what}: device time not measured (no CUDA events)")
-            continue
-        shares[what] = {"wall_s": wall, "busy_s": busy,
-                        "top": [(k, us, c) for k, (us, c) in top]}
-        lines.append(f"{what}: wall {wall:.4f} s untraced, device busy "
-                     f"{busy:.4f} s ({100 * busy / wall:.1f}% of wall), "
-                     f"{sum(c for _, c in dev_us.values())} device ops")
-        for k, (us, c) in top:
-            lines.append(f"    {us / 1e3:10.3f} ms  {c:7d}x  {k[:90]}")
-        say(f"profile {what} wall={wall:.3f}s busy={busy:.3f}s "
-            f"idle={100 * (1 - busy / wall):.1f}% top={top[0][0][:40]}")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "profile.txt").write_text("\n".join(lines) + "\n")
+        summary, table = profile_one(
+            what, lambda: run_batch(dev, FULL, m, ws, vl, la, d))
+        if summary:
+            shares[what] = summary
+            lines += table
+    write_out("profile.txt", lines)
     return shares
+
+
+# ---------------------------------------------------------------------------
+# the LM-decode path: MCTS-guided decoding on smollm-135m
+# ---------------------------------------------------------------------------
+LM_ARCH = "smollm-135m"
+# full size: 16 requests with ragged prompts of 64-256 tokens, 8 new
+# tokens each, every token chosen by a 64-playout pipelined search
+LM_FULL = dict(batch=16, prompt_min=64, prompt_max=256, new_tokens=8,
+               method="pipeline", num_actions=4, budget=64, lanes=16,
+               search_depth=8, rollout_len=4, cp=1.0)
+LM_SMALL = dict(batch=3, prompt_min=3, prompt_max=9, new_tokens=3,
+                method="pipeline", num_actions=3, budget=16, lanes=4,
+                search_depth=3, rollout_len=2, cp=1.0)
+LM_KERNELS = ("flash_attention", "decode_attention")
+LM_SEED = 0
+LM_BES_TICKS = 3  # K1b's check snapshot: waves 0-2 in flight, so the tick
+                  # checked backs up wave 0, expands wave 2, selects wave 3
+F32_TOL = 1e-5    # kernel vs plain in float32: the order of the sums alone
+# bf16, held per element as |got - want| <= F32_TOL + rtol * |want|.  Kernel
+# and plain version both compute in float32 from the same bf16 inputs and
+# round the output to nearest bf16 once, so against the plain version run
+# in float32 on those inputs the kernel is at most half a bf16 ulp off
+# (<= 2^-8 of |value|), and against its bf16 output at most one ulp
+# (<= 2^-7), where the two float32 sums straddle a rounding boundary
+BF16_RTOL_F32 = 2.0 ** -8
+BF16_RTOL = 2.0 ** -7
+STEP_TOL = 0.08   # prefill-then-step vs a prefill of the longer prompt,
+                  # max |diff| over the bf16 model's f32 logits (|max| ~2.4,
+                  # typical ~0.5): the two paths round bf16 activations
+                  # differently (other GEMM shapes and attention kernels)
+                  # over 30 layers; the sound path read 0.0332 on an H100.
+                  # A step planted one position late or early must read
+                  # above it (checked on every run)
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+
+
+def lm_prompts(vocab: int, lm) -> list:
+    gen = torch.Generator().manual_seed(LM_SEED + 1)
+    lens = torch.randint(lm["prompt_min"], lm["prompt_max"] + 1,
+                         (lm["batch"],), generator=gen)
+    return [torch.randint(0, vocab, (int(n),), generator=gen).tolist()
+            for n in lens]
+
+
+def lm_dcfg(lm, **kw):
+    from repro_torch.serving import MCTSDecodeConfig
+    return MCTSDecodeConfig(method=lm["method"],
+                            num_actions=lm["num_actions"],
+                            budget=lm["budget"], lanes=lm["lanes"],
+                            search_depth=lm["search_depth"],
+                            rollout_len=lm["rollout_len"], cp=lm["cp"], **kw)
+
+
+def lm_max_len(lm) -> int:
+    return lm["prompt_max"] + lm["new_tokens"] + lm["search_depth"] \
+        + lm["rollout_len"]
+
+
+def bf16_check(what, got, plain, plain32):
+    """Hold a bf16 kernel output against its plain version's bf16 output
+    (within BF16_RTOL) and against the plain version run in float32 on the
+    same inputs (within BF16_RTOL_F32).  Returns the max |diff| to each and
+    the largest share of its limit that any element used."""
+    g = got.detach().cpu().double()
+    out = {}
+    for name, want, rtol in (("bf16", plain, BF16_RTOL),
+                             ("f32", plain32, BF16_RTOL_F32)):
+        w = want.detach().cpu().double()
+        d, lim = (g - w).abs(), F32_TOL + rtol * w.abs()
+        share = d / lim
+        i = int(share.argmax())
+        if float(share.flatten()[i]) > 1.0:
+            fail(f"{what}: the kernel's bf16 output differs from the plain "
+                 f"version in {name} by {float(d.flatten()[i])} where "
+                 f"|want| is {float(w.abs().flatten()[i])} (limit "
+                 f"{F32_TOL} + {rtol} |want|)")
+        out[name] = float(d.max())
+        out[name + "_limit_share"] = float(share.flatten()[i])
+    return out
+
+
+def phase_attn_kernels(dev):
+    """K4 and K3 against their plain versions on the card: at the main
+    path's full-size shapes in bf16 (the 16-prompt prefill; one layer of
+    the 256-lane decode cache, read in place) and at small shapes in
+    float32; CUDA-event times of kernel, plain version and PyTorch's
+    ``scaled_dot_product_attention`` (the yardstick, unused by the port)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    cfg, lm = get_config(LM_ARCH), LM_FULL
+    h, hkv, d, nl = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.n_layers
+    b, s = lm["batch"], lm_max_len(lm)
+    gen = torch.Generator(dev).manual_seed(11)
+    rnd = lambda *shape, dt: torch.randn(*shape, generator=gen, device=dev,
+                                         dtype=torch.float32).to(dt)
+    bf = torch.bfloat16
+    errs = {}
+    # K4 at the prefill shape, bf16; small float32 cases with the knobs
+    q, k, v = rnd(b, s, h, d, dt=bf), rnd(b, s, hkv, d, dt=bf), \
+        rnd(b, s, hkv, d, dt=bf)
+    bf_err = {"flash_attention": bf16_check(
+        "flash_attention", FA.flash_attention(q, k, v),
+        FA.flash_attention(q, k, v, impl="ref"),
+        FA.flash_attention(q.float(), k.float(), v.float(), impl="ref"))}
+    errs["flash_attention"] = bf_err["flash_attention"]["bf16"]
+    f32 = []
+    for (bb, sq, sk, off, cap, causal) in ((2, 37, 37, 0, 0.0, True),
+                                           (2, 9, 30, 21, 4.0, True),
+                                           (1, 40, 50, 0, 0.0, False)):
+        qs, ks, vs = rnd(bb, sq, h, d, dt=torch.float32), \
+            rnd(bb, sk, hkv, d, dt=torch.float32), \
+            rnd(bb, sk, hkv, d, dt=torch.float32)
+        kw = dict(causal=causal, q_offset=off, logits_soft_cap=cap)
+        f32.append(max_diff(FA.flash_attention(qs, ks, vs, **kw),
+                            FA.flash_attention(qs, ks, vs, impl="ref", **kw)))
+    if max(f32) > F32_TOL:
+        fail(f"flash_attention differs from its plain version in float32 "
+             f"by {max(f32)} (> {F32_TOL})")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fa_times = (
+        cuda_time(lambda _: FA.flash_attention(q, k, v)),
+        cuda_time(lambda _: FA.flash_attention(q, k, v, impl="ref")),
+        cuda_time(lambda _: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)))
+    fa_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    fa_flops = 4 * d * h * b * s * (s + 1) / 2       # causal QK^T and PV
+    # K3 on one layer of the decode cache of 16 roots x 16 lanes
+    n = b * lm["lanes"]
+    qd = rnd(n, 1, h, d, dt=bf)
+    kc, vc = rnd(n, nl, s, hkv, d, dt=bf), rnd(n, nl, s, hkv, d, dt=bf)
+    vl = torch.randint(lm["prompt_min"] + 1, s + 1, (n,), device=dev,
+                       generator=gen).to(torch.int32)
+    layer = nl // 2
+    ks_, vs_ = kc[:, layer], vc[:, layer]
+    bf_err["decode_attention"] = bf16_check(
+        "decode_attention", DA.decode_attention(qd, ks_, vs_, vl),
+        DA.decode_attention(qd, ks_, vs_, vl, impl="ref"),
+        DA.decode_attention(qd.float(), ks_.float(), vs_.float(), vl,
+                            impl="ref"))
+    errs["decode_attention"] = bf_err["decode_attention"]["bf16"]
+    qs, kcs, vcs = rnd(5, 1, h, d, dt=torch.float32), \
+        rnd(5, 2, 40, hkv, d, dt=torch.float32), \
+        rnd(5, 2, 40, hkv, d, dt=torch.float32)
+    vls = torch.tensor([0, 1, 17, 39, 40], dtype=torch.int32, device=dev)
+    f32d = max_diff(DA.decode_attention(qs, kcs[:, 1], vcs[:, 1], vls),
+                    DA.decode_attention(qs, kcs[:, 1], vcs[:, 1], vls,
+                                        impl="ref"))
+    if f32d > F32_TOL:
+        fail(f"decode_attention differs from its plain version in float32 "
+             f"by {f32d} (> {F32_TOL})")
+    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None,
+                                                                None, :]
+    qdt, kdt, vdt = qd.transpose(1, 2), ks_.transpose(1, 2), \
+        vs_.transpose(1, 2)
+    da_times = (
+        cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl)),
+        cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl,
+                                                impl="ref")),
+        cuda_time(lambda _: F.scaled_dot_product_attention(
+            qdt, kdt, vdt, attn_mask=mask, enable_gqa=True)))
+    keys = int(vl.sum())
+    da_bytes = 2 * (2 * qd.numel() + 2 * keys * hkv * d) + 4 * n
+    da_flops = 4 * d * h * keys
+    res = {"flash_attention": (errs["flash_attention"], *fa_times[:2],
+                               bound_ms(fa_bytes, fa_flops, BF16_FLOPS),
+                               fa_times[2]),
+           "decode_attention": (errs["decode_attention"], *da_times[:2],
+                                bound_ms(da_bytes, da_flops, BF16_FLOPS),
+                                da_times[2])}
+    del kc, vc
+    say("attn " + " ".join(
+        f"{k}:bf16_err={v[0]},vs_f32_plain={bf_err[k]['f32']}"
+        f"({100 * bf_err[k]['f32_limit_share']:.1f}% of limit),"
+        f"f32_err={e},ms={v[1]:.4f},plain_ms={v[2]:.4f},"
+        f"bound_ms={v[3][0]:.4f},sdpa_ms={v[4]:.4f}"
+        for (k, v), e in zip(res.items(), (max(f32), f32d)))
+        + f" (prefill [{b}, {s}], decode {n} x {s} keys, bf16)")
+    return res, bf_err
+
+
+def phase_lm_small(dev):
+    """``mcts_decode_batch`` on the float32 smoke config: the card's tokens
+    equal the CPU's, for the fused wave and the lockstep select."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import mcts_decode_batch
+    cfg = get_smoke_config(LM_ARCH)
+    params = TT.init(cfg, seed=LM_SEED)
+    prompts = lm_prompts(cfg.vocab_size, LM_SMALL)
+    out = {}
+    for ws in ("mega", "lockstep"):
+        dc = lm_dcfg(LM_SMALL, wave_select=ws)
+        card = mcts_decode_batch(cfg, params, prompts,
+                                 LM_SMALL["new_tokens"], dc, device=dev)
+        cpu = mcts_decode_batch(cfg, params, prompts,
+                                LM_SMALL["new_tokens"], dc, device="cpu")
+        if card != cpu:
+            fail(f"lm small {ws}: card tokens {card} != CPU {cpu}")
+        out[ws] = card
+    say(f"lm-small {cfg.name} card == CPU tokens ({len(prompts)} ragged "
+        f"prompts, {LM_SMALL['new_tokens']} tokens, mega and lockstep)")
+    return out
+
+
+def lm_buffers(cfg, lm, dev):
+    from repro_torch.serving.mcts_decode import _pad_prompts
+    prompts = lm_prompts(cfg.vocab_size, lm)
+    buf, lens = _pad_prompts(prompts, lm["new_tokens"])
+    return prompts, torch.from_numpy(buf).to(dev), \
+        torch.from_numpy(lens).to(dev)
+
+
+def lm_bes_check(cfg, params, buf, lens, dc, dev) -> float:
+    """K1b at the LM path's shapes: the 16 roots' pipelined search (PUCT
+    rows, A=4, 16 lanes, depth 8, 66-row arena) advanced LM_BES_TICKS ticks
+    by the plain path, then one Backup -> Expand -> Select tick by the
+    kernel and by its plain version on clones of that snapshot.  Integer
+    planes and states must be equal, ``value`` / ``prior`` within
+    VALUE_RTOL; returns the largest float difference."""
+    from repro_torch.core import stages as S
+    from repro_torch.core.tree import init_tree
+    from repro_torch.kernels.search_wave import ops as W
+    from repro_torch.serving.mcts_decode import _domain
+    b, lanes = LM_FULL["batch"], LM_FULL["lanes"]
+    sp = dc.search_config().params
+    dom = _domain(cfg, params, buf, dc, prompt_len=lens)
+    n_waves = -(-LM_FULL["budget"] // lanes)
+    tree = init_tree(dom, n_waves * lanes + 2, root_state=dom.root_state())
+    se = S.empty_selection(sp, b, lanes, dev)
+    ep = S.empty_expansion(sp, tree, lanes)
+    pb = S.empty_playout(sp, b, lanes, dom.num_actions, dev)
+    draws = dom.sample_draws((b, LM_BES_TICKS, lanes), device=dev)
+    for t in range(LM_BES_TICKS):
+        tree, se, ep, pb = W.pipeline_tick(tree, dom, sp, lanes, True, se, ep,
+                                           pb, draws[:, t], impl="ref")
+    del ep
+    if not (sp.puct and bool(pb["valid"].all()) and bool(se["valid"].all())):
+        fail("lm bes: the snapshot has no full PUCT backup and expand wave")
+    t1, nse1, es1 = W.bes(clone_tree(tree), sp, lanes, True, se, pb,
+                          impl="cuda")
+    t2, nse2, es2 = W.bes(clone_tree(tree), sp, lanes, True, se, pb,
+                          impl="ref")
+    torch.cuda.synchronize()
+    err = compare_trees("lm bes", t1, t2)
+    compare_bufs("lm bes sel", nse1, nse2, SEL_KEYS)
+    compare_bufs("lm bes es", es1, es2, ES_KEYS)
+    return err
+
+
+def phase_lm_full(dev):
+    """The LM main path at full width: smollm-135m (random bf16 weights)
+    decoding 16 ragged prompts, every token by a 64-playout search.
+    Checks launch counts, tokens, one search's invariants,
+    prefill-then-step against a prefill of the longer prompt (and that a
+    step planted one position off fails that check), and K1b against its
+    plain version at this path's shapes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import check_consistency
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.base import seq_prefill, seq_step
+    from repro_torch.search import search_batch
+    from repro_torch.serving import mcts_decode_batch
+    from repro_torch.serving.mcts_decode import _domain
+    cfg, lm = get_config(LM_ARCH), LM_FULL
+    params = TT.init(cfg, seed=LM_SEED, device=dev)
+    prompts, buf, lens = lm_buffers(cfg, lm, dev)
+    dc = lm_dcfg(lm)
+    n_new, b = lm["new_tokens"], lm["batch"]
+    mcts_decode_batch(cfg, params, prompts, 1, dc, device=dev)     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                       # the LM main path starts here
+    t0 = time.perf_counter()
+    toks = mcts_decode_batch(cfg, params, prompts, n_new, dc, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_launches()                # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    ticks = -(-lm["budget"] // lm["lanes"]) + 3
+    want = {"flash_attention": n_new * cfg.n_layers,
+            "decode_attention": n_new * ticks * lm["rollout_len"]
+            * cfg.n_layers,
+            "bes": n_new * ticks}
+    for k, w in want.items():
+        if counts[k] != w:
+            fail(f"lm full: kernel {k} launched {counts[k]} times, the "
+                 f"path implies {w}")
+    if any(len(t) != n_new or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in toks):
+        fail("lm full: tokens missing or outside the vocabulary")
+    # one search of the first token, kept: visits, drained planes
+    scfg = dataclasses.replace(dc.search_config(), keep_tree=True)
+    res = search_batch([_domain(cfg, params, buf[i], dc, prompt_len=lens[i])
+                        for i in range(b)], scfg, 0, device=dev)
+    tree = res.tree
+    if not bool((tree.visits[:, 0] == lm["budget"]).all()):
+        fail(f"lm full: root visits != {lm['budget']}")
+    cons = check_consistency(tree)
+    for k in ("vloss_drained", "unobs_drained", "parents_valid",
+              "visit_flow"):
+        if not bool(cons[k].all()):
+            fail(f"lm full: invariant {k} broken")
+    top = torch.sort(tree.state["logits"][:, 0], dim=-1, descending=True,
+                     stable=True)[1][:, :lm["num_actions"]]
+    first = top.gather(1, res.best_action.long()[:, None])[:, 0]
+    if first.tolist() != [t[0] for t in toks]:
+        fail("lm full: the kept search chose other first tokens")
+    nodes_mean = float(cons["nodes"].float().mean())
+    del res, tree
+    # prefill-then-step == a prefill of the prompt one token longer
+    s = lm_max_len(lm)
+    full = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    full[:, :buf.shape[1]] = buf
+    lg, cache = seq_prefill(cfg, params, full, lens)
+    tok = first.to(torch.int32)
+    # planted faults first (on clones: the step writes K/V in place): the
+    # new token's K/V and angle one position late, or one early
+    planted = {}
+    for name, pos in (("late", lens + 1), ("early", lens - 1)):
+        lgp, _ = seq_step(cfg, params, {k: v.clone() for k, v in
+                                        cache.items()}, tok, pos)
+        planted[name] = lgp
+    lg1, _ = seq_step(cfg, params, cache, tok, lens)
+    rows = torch.arange(b, device=dev)
+    full[rows, lens.long()] = tok
+    lg2, _ = seq_prefill(cfg, params, full, lens + 1)
+    step_err = max_diff(lg1, lg2)
+    if step_err > STEP_TOL:
+        fail(f"lm full: prefill-then-step differs from the longer prefill "
+             f"by {step_err} (> {STEP_TOL})")
+    planted = {k: max_diff(v, lg2) for k, v in planted.items()}
+    if min(planted.values()) <= STEP_TOL:
+        fail(f"lm full: a step planted one position off reads {planted}, "
+             f"within STEP_TOL {STEP_TOL}: the check cannot see it")
+    del cache
+    bes_err = lm_bes_check(cfg, params, buf, lens, dc, dev)
+    run = {"seconds": secs, "tokens_per_s": b * n_new / secs,
+           "playouts_per_s": b * n_new * lm["budget"] / secs,
+           "peak_mem_bytes": peak, "launches": counts,
+           "launches_expected": want, "step_vs_prefill_max_abs": step_err,
+           "planted_step_max_abs": planted,
+           "logit_abs_max": float(lg2.abs().max()),
+           "logit_abs_mean": float(lg2.abs().mean()),
+           "bes_max_abs_err": bes_err, "nodes_mean": nodes_mean,
+           "tokens": toks}
+    say(f"lm-full {cfg.name} {b} prompts x {n_new} tokens in {secs:.3f} s: "
+        f"{run['tokens_per_s']:.2f} tokens/s, {run['playouts_per_s']:.1f} "
+        f"playouts/s, peak {peak / 2**30:.2f} GiB; launches "
+        + ",".join(f"{k}={counts[k]}" for k in want)
+        + f"; step vs prefill {step_err} (planted one off: "
+        f"{planted['late']} late, {planted['early']} early); bes at these "
+        f"shapes == plain (max float diff {bes_err})")
+    return run, params
+
+
+def phase_lm_profile(dev, params):
+    """Where one token's search goes on the LM path (table in
+    ``chiprun_out/profile_lm.txt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import make_batched_searcher
+    cfg, lm = get_config(LM_ARCH), LM_FULL
+    _, buf, lens = lm_buffers(cfg, lm, dev)
+    step = make_batched_searcher(cfg, params, lm_dcfg(lm), lm["batch"],
+                                 device=dev)
+    summary, table = profile_one(
+        f"lm {cfg.name}, one token's search over {lm['batch']} prompts",
+        lambda: step(buf, lens))
+    write_out("profile_lm.txt", table)
+    return summary or {}
 
 
 SOURCES = {
@@ -537,6 +949,10 @@ SOURCES = {
                          "src/repro/kernels/uct_select/kernel.py:51"),
     "uct_argmax_running": ("src/repro_torch/csrc/uct_select.cu",
                            "src/repro/kernels/uct_select/kernel.py:133"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:74"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:61"),
 }
 
 
@@ -553,25 +969,36 @@ def main() -> int:
     card, name = phase_env()
     build_s, ptxas = phase_build()
     kern = phase_kernels(dev)
+    attn, attn_bf16 = phase_attn_kernels(dev)
     small = phase_small(dev)
+    lm_small = phase_lm_small(dev)
     runs, counts = phase_full(dev)
+    lm_run, lm_params = phase_lm_full(dev)
     prof = phase_profile(dev)
+    lm_prof = phase_lm_profile(dev, lm_params)
     kernels = []
     for k, (src, repl) in SOURCES.items():
-        err, ms, pms, (bms, by) = kern["loss/independent"][k]
+        if k in attn:
+            err, ms, pms, (bms, by), lib = attn[k]
+            n = lm_run["launches"][k]
+        else:
+            err, ms, pms, (bms, by) = kern["loss/independent"][k]
+            err, lib, n = max(kern[t][k][0] for t in kern), None, counts[k]
+            if k == "bes":
+                err = max(err, lm_run["bes_max_abs_err"])
         kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": counts[k],
-                        "max_abs_err": max(kern[t][k][0] for t in kern),
-                        "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                        "bound_by": by, "library_ms": None})
+                        "replaces": repl, "launches": n,
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": lib})
     detail = {"card": card, "device": name, "build_s": build_s,
-              "ptxas": ptxas, "kernels": kern, "small_float_diff": small,
+              "ptxas": ptxas, "kernels": kern, "attn_kernels": attn,
+              "attn_bf16_checks": attn_bf16,
+              "small_float_diff": small, "lm_small_tokens": lm_small,
               "full_runs": runs, "launch_counts": counts, "profile": prof,
+              "lm_full": lm_run, "lm_profile": lm_prof,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    write_out("chip_smoke.json", [json.dumps(detail, indent=1)])
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The state carry between the JAX package's ``TreeArena`` and the port's.
+"""The state carry between the JAX package's ``TreeArena`` and the port's,
+and the JAX model parameters as the port's.
 
 A search tree is this system's state, as weights are a model's: to start
 both implementations from the same mid-search tree, a JAX arena's leaves
@@ -75,3 +76,16 @@ def arena_to_numpy(arena: TreeArena, *,
         state[k] = x.astype(np.uint32) if k in _UINT32_STATE else x
     out["state"] = state
     return out
+
+
+def params_from_numpy(tree, device="cpu"):
+    """The port's parameter dict from a JAX parameter pytree whose leaves
+    were taken with ``np.asarray`` (same keys; bfloat16 leaves, which numpy
+    holds as ``ml_dtypes.bfloat16``, become ``torch.bfloat16``)."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    x = np.asarray(tree)
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(x.view(np.uint16)).astype(np.int32))
+        return (t << 16).view(torch.float32).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)

@@ -77,17 +77,26 @@ class TreeArena:
 
 
 def init_arena(root_state: Dict[str, Any], num_actions: int, max_nodes: int,
-               root_terminal=False, *, batch: int = 1,
-               device="cpu") -> TreeArena:
-    """Fresh arena of ``batch`` roots: root at row 0, every other row
-    unallocated.  ``root_state`` leaves broadcast to ``[batch]``."""
-    b, n, a = batch, max_nodes, num_actions
-    dev = torch.device(device)
+               root_terminal=False) -> TreeArena:
+    """Fresh arena of B roots: root at row 0, every other row unallocated.
+    ``root_state`` leaves are ``[B] + S``, one root each (``B`` from the
+    leaves; a root shared by B searches is expanded to that shape by the
+    caller); each becomes a plane ``[B, max_nodes] + S`` on the leaves'
+    device."""
+    leaves = {k: torch.as_tensor(v) for k, v in root_state.items()}
+    if not leaves:
+        raise ValueError("init_arena needs at least one root state leaf")
+    lead = {v.shape[:1] for v in leaves.values()}
+    if len(lead) != 1 or () in lead:
+        shapes = {k: tuple(v.shape) for k, v in leaves.items()}
+        raise ValueError("root state leaves must share a leading batch axis, "
+                         f"got shapes {shapes}")
+    b, n, a = lead.pop()[0], max_nodes, num_actions
+    dev = next(iter(leaves.values())).device
     state = {}
-    for k, v in root_state.items():
-        v = torch.as_tensor(v).to(dev)
-        buf = torch.zeros((b, n) + tuple(v.shape[1:] if v.dim() else ()),
-                          dtype=v.dtype, device=dev)
+    for k, v in leaves.items():
+        buf = torch.zeros((b, n) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=dev)
         buf[:, ROOT] = v
         state[k] = buf
     i32 = dict(dtype=torch.int32, device=dev)

@@ -104,11 +104,13 @@ def empty_selection(sp: SearchParams, batch: int, lanes: int, device):
             "dup_cross": f.clone()}
 
 
-def empty_expansion(sp: SearchParams, batch: int, lanes: int, domain,
-                    device):
-    state = {k: torch.zeros((batch, lanes) + tuple(v.shape), dtype=v.dtype,
-                            device=device)
-             for k, v in domain.root_state().items()}
+def empty_expansion(sp: SearchParams, tree: Tree, lanes: int):
+    """An empty Expand->Playout buffer; its state takes the dtypes and
+    trailing shapes of the arena's state planes."""
+    batch, device = tree.batch, tree.device
+    state = {k: torch.zeros((batch, lanes) + tuple(v.shape[2:]),
+                            dtype=v.dtype, device=device)
+             for k, v in tree.state.items()}
     return {"path": _i32((batch, lanes, sp.path_len), UNEXPANDED, device),
             "node": _i32((batch, lanes), 0, device),
             "is_new": torch.zeros((batch, lanes), dtype=torch.bool,
@@ -139,6 +141,13 @@ def infl_plane(tree: Tree, sp: SearchParams) -> torch.Tensor:
 def with_infl(tree: Tree, sp: SearchParams, plane) -> Tree:
     """Write ``plane`` back to the mode's in-flight field."""
     return tree.replace(unobs=plane) if sp.wu else tree.replace(vloss=plane)
+
+
+def where_lead(mask, a, b):
+    """``torch.where(mask, a, b)`` for state leaves ``lead + S`` under a
+    ``lead``-shaped mask (the mask is aligned from the left)."""
+    m = mask.view(tuple(mask.shape) + (1,) * (a.dim() - mask.dim()))
+    return torch.where(m, a, b)
 
 
 def put_col(path, col, vals, mask):
@@ -301,7 +310,7 @@ def expand_one(tree: Tree, domain, sp: SearchParams, sel):
     all_rows = torch.ones_like(can)
     path = put_col(sel["path"], depth + 1,
                    torch.where(can, new, UNEXPANDED), all_rows)
-    state = {k: torch.where(can, child_state[k], parent_state[k])
+    state = {k: where_lead(can, child_state[k], parent_state[k])
              for k in child_state}
     return tree, {"path": path, "node": node, "is_new": can, "state": state,
                   "valid": valid}

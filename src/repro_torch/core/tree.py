@@ -1,7 +1,8 @@
 """Search-tree entry points over the batched ``core.arena.TreeArena``.
 
 The PyTorch counterpart of ``repro.core.tree`` on the cold path: a tree
-starts from ``domain.root_state()``.  Every function keeps the arena's
+starts from ``domain.root_state()``, or from a root state the caller
+computed once.  Every function keeps the arena's
 leading batch axis (one tree per search root).
 """
 from __future__ import annotations
@@ -16,13 +17,19 @@ from repro_torch.core.arena import (ROOT, UNEXPANDED, TreeArena,  # noqa: F401
 Tree = TreeArena
 
 
-def init_tree(domain, max_nodes: int, *, batch: int = 1,
-              device="cpu") -> Tree:
-    """``batch`` cold trees for ``domain``, rooted at ``domain.root_state()``."""
-    root_state = domain.root_state()
+def init_tree(domain, max_nodes: int, *, batch: int = 1, device="cpu",
+              root_state=None) -> Tree:
+    """Cold trees for ``domain``: with ``root_state`` (leaves ``[B] + S``,
+    computed once by the search entry points) one tree per root on the
+    leaves' device; without it, ``batch`` trees rooted at
+    ``domain.root_state()`` on ``device``."""
+    if root_state is None:
+        root_state = {}
+        for k, v in domain.root_state().items():
+            v = torch.as_tensor(v, device=device)
+            root_state[k] = v.expand((batch,) + tuple(v.shape))
     return init_arena(root_state, domain.num_actions, max_nodes,
-                      domain.is_terminal(root_state), batch=batch,
-                      device=device)
+                      domain.is_terminal(root_state))
 
 
 def get_state(tree: Tree, node: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,47 @@
+"""Plain PyTorch flash-attention forward — the oracle of the CUDA kernel
+``csrc/flash_attention.cu`` and the version the wrapper runs on the CPU.
+
+The counterpart of ``repro.kernels.flash_attention.ref``, extended with the
+knobs the kernel implements and the Pallas path drops: ``q_offset``
+(query row i sits at key position ``i + q_offset``), ``logits_soft_cap``
+(``cap * tanh(s / cap)``) and ``seq_k_valid`` (keys at or beyond it are
+padding).  Scores and the softmax are float32; a query row with no key to
+attend gives zeros, as the kernel's ``l`` floor does.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def masked_softmax_pv(s, keep, v):
+    """``softmax(s) @ v`` over the keys ``keep`` allows, in float32; rows
+    with no allowed key give 0.  ``s`` / ``keep`` ``[..., q, k]``, ``v``
+    ``[..., k, d]``."""
+    m = s.masked_fill(~keep, float("-inf")).amax(-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    out = p @ v
+    return out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        logits_soft_cap: float = 0.0, seq_k_valid=None):
+    """q ``[B, Sq, H, D]``; k, v ``[B, Sk, Hkv, D]`` (GQA: head h reads kv
+    head ``h // (H // Hkv)``) -> ``[B, Sq, H, D]`` in q's dtype."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # [B, Hkv, 1, Sk, D]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / d ** 0.5)   # [B, Hkv, G, Sq, Sk]
+    if logits_soft_cap > 0.0:
+        s = logits_soft_cap * torch.tanh(s / logits_soft_cap)
+    kpos = torch.arange(sk, device=q.device)
+    keep = kpos[None, :] < (sk if seq_k_valid is None else seq_k_valid)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        keep = keep & (qpos >= kpos[None, :])
+    else:
+        keep = keep.expand(sq, sk)
+    out = masked_softmax_pv(s, keep, vf)                 # [B, Hkv, G, Sq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)

@@ -86,7 +86,7 @@ def finish_expand(tree: TreeArena, domain, es):
     set_rows(tree.terminal, new, term, can)
     for k, buf in tree.state.items():
         set_rows(buf, new, child_state[k], can)
-    state = {k: torch.where(can, child_state[k], parent_state[k])
+    state = {k: S.where_lead(can, child_state[k], parent_state[k])
              for k in child_state}
     return tree, {"path": es["path"], "node": es["node"], "is_new": can,
                   "state": state, "valid": es["valid"]}

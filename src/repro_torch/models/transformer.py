@@ -1,0 +1,157 @@
+"""Dense decoder-only transformer family.
+
+The PyTorch counterpart of ``repro.models.transformer``: smollm-135m,
+qwen2-0.5b, minicpm-2b and stablelm-3b through ``ModelConfig`` flags (norm
+type, partial rotary, qkv bias, residual / logit scaling, GQA widths).
+Parameters are a dict of tensors with the JAX package's keys; per-layer
+weights are stacked on a leading ``[L]`` axis and a Python loop over the
+layers takes the place of ``lax.scan``.
+
+Attention: the prompt prefill runs the flash kernel (K4) through
+``layers.attention``; every incremental token runs the flash-decode kernel
+(K3) on one layer's slice of the cache, read in place.
+"""
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.base import ModelConfig, register_family, tree_to
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_block(cfg: ModelConfig, gen):
+    return {"ln1": L.init_norm(cfg), "attn": L.init_gqa(cfg, gen),
+            "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg, gen)}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init(cfg: ModelConfig, seed: int = 0, device="cpu"):
+    """Random weights with the JAX ``init``'s tree, dtypes and scales
+    (``dense_init`` 1/sqrt(fan_in), ``embed_init`` 0.02), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    params = {"embed": L.init_embed(cfg, gen),
+              "layers": _stack([_init_block(cfg, gen)
+                                for _ in range(cfg.n_layers)]),
+              "final_norm": L.init_norm(cfg)}
+    return tree_to(params, device)
+
+
+def layer_params(params, i: int):
+    """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
+    def pick(t):
+        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return pick(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _block(cfg: ModelConfig, p, x, cos, sin):
+    """One causal transformer block over ``x [B, S, d]``; returns
+    ``(x, k, v)`` with the block's rotated keys and values."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = L.gqa_project_qkv(cfg, p["attn"], h)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    attn = L.attention(cfg, q, k, v, causal=True)
+    x = x + (attn.flatten(-2) @ p["attn"]["wo"]) * cfg.residual_scale
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.apply_mlp(cfg, p["mlp"], h) * cfg.residual_scale, k, v
+
+
+def hidden_states(cfg: ModelConfig, params, tokens):
+    """Full-sequence forward ``tokens [B, S]`` -> final hidden
+    ``[B, S, d]``."""
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    cos, sin = L.rope_freqs(cfg, torch.arange(tokens.shape[1],
+                                              device=tokens.device))
+    for i in range(cfg.n_layers):
+        x, _, _ = _block(cfg, layer_params(params, i), x, cos, sin)
+    return L.apply_norm(cfg, params["final_norm"], x)
+
+
+def logits_fn(cfg: ModelConfig, params, tokens):
+    return L.lm_head(cfg, params["embed"], hidden_states(cfg, params, tokens))
+
+
+def _prefill_stack(cfg: ModelConfig, params, tokens):
+    """Prompt pass ``tokens [B, S]`` -> (final-normed hidden ``[B, S, d]``,
+    cache ``{k, v: [B, L, S, Hkv, D]}``)."""
+    b, s = tokens.shape
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    cos, sin = L.rope_freqs(cfg, torch.arange(s, device=tokens.device))
+    shape = (b, cfg.n_layers, s, cfg.kv_heads, cfg.head_dim)
+    ks = torch.empty(shape, dtype=x.dtype, device=x.device)
+    vs = torch.empty_like(ks)
+    for i in range(cfg.n_layers):
+        x, ks[:, i], vs[:, i] = _block(cfg, layer_params(params, i), x, cos,
+                                       sin)
+    return L.apply_norm(cfg, params["final_norm"], x), {"k": ks, "v": vs}
+
+
+# ---------------------------------------------------------------------------
+# incremental decode over any leading shape (models.base)
+# ---------------------------------------------------------------------------
+def prefill_fn(cfg: ModelConfig, params, toks, plen):
+    """``toks [*lead, S]`` padded buffers with true lengths ``plen
+    [*lead]`` -> (logits ``[*lead, V]`` f32 at ``plen - 1``, cache ``{k, v:
+    [*lead, L, S, Hkv, D]}``).  Positions ``>= plen`` of the cache hold
+    padding K/V, masked by ``step_fn``'s valid length until overwritten."""
+    lead, s = toks.shape[:-1], toks.shape[-1]
+    x, cache = _prefill_stack(cfg, params, toks.reshape(-1, s))
+    last = torch.as_tensor(plen, device=toks.device).expand(lead) \
+        .reshape(-1).long() - 1
+    h_last = x[torch.arange(x.shape[0], device=x.device), last]
+    # lm_head in the activation dtype, then float32, as the JAX package
+    logits = L.lm_head(cfg, params["embed"], h_last).float()
+    return (logits.reshape(lead + logits.shape[-1:]),
+            {k: v.reshape(lead + v.shape[1:]) for k, v in cache.items()})
+
+
+def step_fn(cfg: ModelConfig, params, cache, tok, pos):
+    """One incremental token per row: cache ``{k, v: [*lead, L, S, Hkv,
+    D]}``, ``tok`` / ``pos [*lead]`` -> (logits ``[*lead, V]`` f32 for
+    ``pos + 1``, cache).  Writes the new K/V row at ``pos`` of ``cache``
+    IN PLACE (callers that keep the old state pass a copy); attention reads
+    each layer's slice of the cache in place through the decode kernel."""
+    from repro_torch.kernels.decode_attention import ops as da
+    kc, vc = cache["k"], cache["v"]
+    lead = tuple(tok.shape)
+    n = int(torch.Size(lead).numel())
+    s = kc.shape[-3]
+    kf, vf = kc.view((n,) + kc.shape[-4:]), vc.view((n,) + vc.shape[-4:])
+    pos = torch.as_tensor(pos, device=kc.device).expand(lead).reshape(n)
+    torch._assert_async((pos < s).all(), "step_fn: pos beyond the cache")
+    rows = torch.arange(n, device=kc.device)
+    posl = pos.long()
+    x = L.embed_tokens(cfg, params["embed"], tok.reshape(n, 1))
+    cos, sin = L.rope_freqs(cfg, pos.reshape(n, 1))
+    valid = (pos + 1).to(torch.int32)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        h = L.apply_norm(cfg, p["ln1"], x)
+        q, k, v = L.gqa_project_qkv(cfg, p["attn"], h)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+        kf[rows, i, posl] = k[:, 0].to(kf.dtype)
+        vf[rows, i, posl] = v[:, 0].to(vf.dtype)
+        attn = da.decode_attention(q, kf[:, i], vf[:, i], valid)
+        x = x + (attn.flatten(-2) @ p["attn"]["wo"]) * cfg.residual_scale
+        h = L.apply_norm(cfg, p["ln2"], x)
+        x = x + L.apply_mlp(cfg, p["mlp"], h) * cfg.residual_scale
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.lm_head(cfg, params["embed"], x)[:, 0].float()
+    return logits.reshape(lead + logits.shape[-1:]), cache
+
+
+register_family("dense")(sys.modules[__name__])

@@ -9,6 +9,9 @@ Entry points
     search(domain, cfg, rng, device=None)          one search
     search_batch(domains, cfg, rng, device=None)   B searches of one domain
                                                    as one batched program
+    search_stacked(domain, B, cfg, rng, device=None)
+                                                   the same over one domain
+                                                   already stacked over B
 Configuration
     SearchConfig    method/budget/lanes/max_nodes/keep_tree + ``params``
     SearchParams    cp, vl_weight, max_depth, puct, vl_mode, kernels
@@ -24,7 +27,7 @@ from repro_torch.core.stages import SearchParams  # noqa: F401  (re-export)
 from repro_torch.search.api import (STATS_KEYS, SearchConfig,  # noqa: F401
                                     SearchResult, draws_shape, get_strategy,
                                     list_strategies, register_strategy,
-                                    search, search_batch)
+                                    search, search_batch, search_stacked)
 from repro_torch.search.domain import (Domain, SupportsPriors,  # noqa: F401
                                        check_domain)
 from repro_torch.search import strategies  # noqa: F401  (built-ins)
@@ -32,7 +35,7 @@ from repro_torch.search import strategies  # noqa: F401  (built-ins)
 __all__ = [
     "STATS_KEYS", "SearchConfig", "SearchParams", "SearchResult",
     "Domain", "SupportsPriors", "check_domain", "draws_shape",
-    "search", "search_batch",
+    "search", "search_batch", "search_stacked",
     "get_strategy", "list_strategies", "register_strategy",
     "strategies",
 ]

@@ -19,10 +19,15 @@ and ``(B,) + draws_shape(domain, cfg)`` for ``search_batch``, or a seed /
 ``torch.Generator`` from which the draws are made on the CPU (so the same
 seed gives the same search on every device).
 
-``search_batch`` runs B searches of ONE domain (each under its own draws)
-as one batched program: every arena plane carries a leading batch axis.
-Strategies register ``fn(domain, cfg, draws, device)`` with the trailing
-draw shape they consume, and return batched ``SearchResult``s.
+``search_batch`` runs B searches (each under its own draws) as one batched
+program: every arena plane carries a leading batch axis.  The B domains are
+of one class and may differ in tensor-valued fields only (a decode
+request's prompt and its length); those are stacked, as the JAX package
+stacks them, into ONE domain whose ``root_state()`` returns the B roots'
+states.  The root state is computed once per call.  A caller that already
+holds such a stacked domain passes it to ``search_stacked``.  Strategies
+register ``fn(domain, cfg, draws, root_state)`` with the trailing draw
+shape they consume, and return batched ``SearchResult``s.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ __all__ = [
     "STATS_KEYS", "SearchConfig", "SearchResult", "StrategyFn",
     "register_strategy", "get_strategy", "list_strategies", "draws_shape",
     "make_stats", "result_from_tree", "resolve_device", "search",
-    "search_batch",
+    "search_batch", "search_stacked",
 ]
 
 STATS_KEYS = ("playouts", "playouts_requested", "playouts_completed",
@@ -189,8 +194,22 @@ def _draws(domain, cfg, rng, lead: tuple, device) -> torch.Tensor:
     return domain.sample_draws(lead_shape, gen, "cpu").to(device)
 
 
-def _run(domain, cfg: SearchConfig, draws, device) -> SearchResult:
-    res = get_strategy(cfg.method)(domain, cfg, draws, device)
+def _root_state(domain, stacked: bool, batch: int, device):
+    """The B roots' state (leaves ``[B] + S`` on ``device``) from ONE call
+    of ``domain.root_state()``; an unstacked domain's root is shared."""
+    out = {}
+    for k, v in domain.root_state().items():
+        v = torch.as_tensor(v, device=device)
+        if stacked and (v.dim() == 0 or v.shape[0] != batch):
+            raise TypeError(f"root_state() of a domain stacked over {batch} "
+                            f"roots returned leaf {k!r} of shape "
+                            f"{tuple(v.shape)}")
+        out[k] = v if stacked else v.expand((batch,) + tuple(v.shape))
+    return out
+
+
+def _run(domain, cfg: SearchConfig, draws, root_state) -> SearchResult:
+    res = get_strategy(cfg.method)(domain, cfg, draws, root_state)
     missing = set(STATS_KEYS) ^ set(res.stats)
     if missing:
         raise RuntimeError(f"strategy {cfg.method!r} broke the common stats "
@@ -214,7 +233,7 @@ def search(domain, cfg: SearchConfig, rng, *, device=None) -> SearchResult:
     _check(domain)
     dev = resolve_device(device)
     draws = _draws(domain, cfg, rng, (), dev)[None]
-    res = _run(domain, cfg, draws, dev)
+    res = _run(domain, cfg, draws, _root_state(domain, False, 1, dev))
     first = lambda d: {k: v[0] if isinstance(v, torch.Tensor) else v
                        for k, v in d.items()}
     return res._replace(action_visits=res.action_visits[0],
@@ -225,19 +244,92 @@ def search(domain, cfg: SearchConfig, rng, *, device=None) -> SearchResult:
 
 def search_batch(domains: Sequence[Any], cfg: SearchConfig, rng, *,
                  device=None) -> SearchResult:
-    """B searches of one domain, each under its own draws, as one batched
-    program; every result leaf gains a leading batch axis.  With draw
-    tensors, ``search_batch(ds, cfg, draws)[i] == search(ds[i], cfg,
-    draws[i])``.  Domains that differ raise TypeError: P-game batches are
-    batches of one game under B draw streams."""
+    """B searches, each under its own draws, as one batched program; every
+    result leaf gains a leading batch axis.  With draw tensors,
+    ``search_batch(ds, cfg, draws)[i] == search(ds[i], cfg, draws[i])``.
+
+    The domains share one dataclass and differ, if at all, in tensor-valued
+    fields (or dicts of tensors), which are stacked on a new leading axis;
+    fields that differ otherwise (``num_actions``, depths, seeds) raise
+    TypeError."""
     domains = list(domains)
     if not domains:
         raise ValueError("search_batch needs at least one domain")
-    d0 = domains[0]
-    _check(d0)
-    if any(d is not d0 and d != d0 for d in domains[1:]):
-        raise TypeError("search_batch takes B copies of one domain; got "
-                        "domains that differ")
+    _check(domains[0])
+    dom, stacked = _batch_domains(domains)
+    return _search_b(dom, stacked, len(domains), cfg, rng, device)
+
+
+def search_stacked(domain, batch: int, cfg: SearchConfig, rng, *,
+                   device=None) -> SearchResult:
+    """``search_batch`` over a domain whose tensor fields already carry the
+    batch axis, as ``search_batch`` stacks B domains: its ``root_state()``
+    returns ``[batch] + S`` leaves.  For a caller that holds the batch
+    already (the batched decode searcher), with no split and restack."""
+    _check(domain)
+    return _search_b(domain, True, batch, cfg, rng, device)
+
+
+def _search_b(dom, stacked: bool, b: int, cfg, rng, device) -> SearchResult:
     dev = resolve_device(device)
-    draws = _draws(d0, cfg, rng, (len(domains),), dev)
-    return _run(d0, cfg, draws, dev)
+    draws = _draws(dom, cfg, rng, (b,), dev)
+    return _run(dom, cfg, draws, _root_state(dom, stacked, b, dev))
+
+
+def _same(a, b) -> bool:
+    """Two field values are interchangeable: the same object, equal
+    tensors, dicts of such, or equal plain values."""
+    if a is b:
+        return True
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    return type(a) is type(b) and a == b
+
+
+def _stackable(v) -> bool:
+    if isinstance(v, dict):
+        return all(_stackable(x) for x in v.values())
+    return isinstance(v, torch.Tensor)
+
+
+def _stack(vals):
+    if isinstance(vals[0], dict):
+        return {k: _stack([v[k] for v in vals]) for k in vals[0]}
+    return torch.stack(vals)
+
+
+def _batch_domains(domains):
+    """``(domain, stacked)``: the first domain when all are the same, else
+    one domain whose differing tensor fields are stacked over the batch."""
+    d0 = domains[0]
+    if all(d is d0 for d in domains[1:]):
+        return d0, False
+    if any(type(d) is not type(d0) for d in domains[1:]):
+        raise TypeError("search_batch domains must all share one type; got "
+                        f"{sorted({type(d).__name__ for d in domains})}")
+    if not dataclasses.is_dataclass(d0):
+        raise TypeError(f"search_batch over distinct {type(d0).__name__} "
+                        "instances needs a dataclass domain")
+    varying = {}
+    for f in dataclasses.fields(d0):
+        vals = [getattr(d, f.name) for d in domains]
+        if all(_same(v, vals[0]) for v in vals[1:]):
+            continue
+        if not all(_stackable(v) for v in vals):
+            raise TypeError(f"search_batch domains differ in field "
+                            f"{f.name!r}; only tensor-valued fields may "
+                            "differ across the batch")
+        try:
+            varying[f.name] = _stack(vals)
+        except (RuntimeError, KeyError) as e:
+            raise TypeError(f"search_batch cannot stack field {f.name!r}: "
+                            f"{e}") from e
+    if not varying:
+        return d0, False
+    return dataclasses.replace(d0, **varying), True

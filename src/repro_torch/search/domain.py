@@ -1,13 +1,17 @@
 """The Domain contract for all search strategies — the PyTorch counterpart
 of ``repro.search.domain``.
 
-A domain's state is a dict of tensors with leading batch shape; every
-method works on whole batches (roots x lanes) at once:
+A domain's state is a dict of tensors, each of some trailing shape S
+(0-d, a vector, a cache) behind a leading batch shape; every method works
+on whole batches (roots x lanes) at once:
 
 ``num_actions : int``
     Static branching factor A (> 0).
 ``root_state() -> dict``
-    The search root's state as 0-d tensors.
+    The search root's state: leaves of shape S.  When ``search_batch``
+    stacked differing tensor fields of B domains into one, the leaves are
+    ``[B] + S``, one root each; per-root data that ``step`` /
+    ``is_terminal`` / ``playout`` need then travels in the state.
 ``step(state, action) -> state``
     Apply integer actions of the state's leading shape; keeps the keys,
     dtypes and trailing shapes.
@@ -72,7 +76,8 @@ def _describe(state) -> str:
 
 def check_domain(domain: Any) -> bool:
     """Validate ``domain`` against the contract by evaluating its methods on
-    a batch of one CPU root state; raise TypeError listing violations."""
+    a batch of one root state (leaves ``[1] + S``); raise TypeError listing
+    violations."""
     if not isinstance(domain, Domain):
         raise TypeError(f"{type(domain).__name__} is not a Domain: "
                         f"missing {missing_members(domain)}")

@@ -1,9 +1,11 @@
 """The five built-in strategies — the PyTorch counterpart of
 ``repro.search.strategies``, over a batch of B roots.
 
-Each strategy is ``fn(domain, cfg, draws, device)`` with ``draws``
-``[B, *draws_shape]``; the draw layout follows the JAX package's key-split
-tree, so a parity test can hand both the same randomness:
+Each strategy is ``fn(domain, cfg, draws, root_state)`` with ``draws``
+``[B, *draws_shape]`` and ``root_state`` the B roots' state (leaves
+``[B] + S``, computed once by the entry point); the draw layout follows
+the JAX package's key-split tree, so a parity test can hand both the same
+randomness:
 
   sequential  [budget, 1, *draw_shape]          split(rng, budget), lanes=1
   root        [workers, per, 1, *draw_shape]    split(rng, workers), then as
@@ -50,11 +52,11 @@ def _one_lane(exp):
 
 
 def _sequential_core(domain, sp, budget: int, max_nodes: int, draws,
-                     device):
+                     root_state):
     """Shared S→E→P→B loop over ``draws [B, budget, 1, ...]``; returns
     ``(tree, values [B, budget], dups [B, budget])``."""
-    tree = init_tree(domain, max_nodes or budget + 2, batch=draws.shape[0],
-                     device=device)
+    tree = init_tree(domain, max_nodes or budget + 2,
+                     root_state=root_state)
     values, dups = [], []
     for t in range(budget):
         tree, sel = S.select_one(tree, sp, True)
@@ -71,11 +73,12 @@ def _seq_draws(domain, cfg):
 
 
 @register_strategy("sequential", draws=_seq_draws)
-def sequential(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+def sequential(domain, cfg: SearchConfig, draws,
+               root_state) -> SearchResult:
     tree, values, dups = _sequential_core(domain, cfg.params, cfg.budget,
-                                          cfg.max_nodes, draws, device)
+                                          cfg.max_nodes, draws, root_state)
     stats = make_stats(tree.batch, cfg.budget, cfg.budget, dups.sum(1),
-                       cfg.budget, device)
+                       cfg.budget, tree.device)
     return result_from_tree(tree, stats, extras={"values": values})
 
 
@@ -85,7 +88,7 @@ def _root_draws(domain, cfg):
 
 
 @register_strategy("root", draws=_root_draws)
-def root(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+def root(domain, cfg: SearchConfig, draws, root_state) -> SearchResult:
     """Root parallelization / Ensemble UCT: ``lanes`` independent
     sequential searches per root (run as B x workers trees), root
     statistics summed.  ``tree`` is None."""
@@ -93,7 +96,8 @@ def root(domain, cfg: SearchConfig, draws, device) -> SearchResult:
     per = _ceil_div(cfg.budget, workers)
     tree, _, dups = _sequential_core(
         domain, cfg.params, per, cfg.max_nodes,
-        draws.reshape((bsz * workers,) + tuple(draws.shape[2:])), device)
+        draws.reshape((bsz * workers,) + tuple(draws.shape[2:])),
+        {k: v.repeat_interleave(workers, 0) for k, v in root_state.items()})
     n, w, _ = root_child_stats(tree)
     a = n.shape[-1]
     n, w = n.view(bsz, workers, a), w.view(bsz, workers, a)
@@ -102,7 +106,7 @@ def root(domain, cfg: SearchConfig, draws, device) -> SearchResult:
         visits, value = visits + n[:, i], value + w[:, i]
     best = torch.argmax(torch.where(visits > 0, visits, -1), dim=-1).int()
     stats = make_stats(bsz, per * workers, per * workers,
-                       dups.view(bsz, -1).sum(1), per, device)
+                       dups.view(bsz, -1).sum(1), per, tree.device)
     return SearchResult(action_visits=visits.int(), action_value=value,
                         best_action=best, tree=None, stats=stats, extras={})
 
@@ -113,13 +117,14 @@ def _leaf_draws(domain, cfg):
 
 
 @register_strategy("leaf", draws=_leaf_draws)
-def leaf(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+def leaf(domain, cfg: SearchConfig, draws,
+         root_state) -> SearchResult:
     """Leaf parallelization: sequential S/E, ``lanes`` playouts from the
     selected leaf per iteration, aggregate backup."""
     sp, workers = cfg.params, _workers(cfg)
     iters = _ceil_div(cfg.budget, workers)
     tree = init_tree(domain, cfg.max_nodes or iters + 2,
-                     batch=draws.shape[0], device=device)
+                     root_state=root_state)
     dups = []
     for t in range(iters):
         tree, sel = S.select_one(tree, sp, True)
@@ -139,7 +144,7 @@ def leaf(domain, cfg: SearchConfig, draws, device) -> SearchResult:
         dups.append(sel["dup"])
     dups = torch.stack(dups, 1)
     stats = make_stats(tree.batch, iters * workers, iters * workers,
-                       dups.sum(1), iters, device)
+                       dups.sum(1), iters, tree.device)
     return result_from_tree(tree, stats)
 
 
@@ -154,13 +159,14 @@ def _dup_sums(sels):
 
 
 @register_strategy("tree", draws=_wave_draws)
-def tree_parallel(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+def tree_parallel(domain, cfg: SearchConfig, draws,
+                  root_state) -> SearchResult:
     """Tree parallelization with in-flight counts: per round, ``lanes``
     trajectories selected/expanded/played/backed up together."""
     sp, threads = cfg.params, _workers(cfg)
     rounds = _ceil_div(cfg.budget, threads)
     tree = init_tree(domain, cfg.max_nodes or rounds * threads + 2,
-                     batch=draws.shape[0], device=device)
+                     root_state=root_state)
     fused = sp.resolved_wave_select(tree.device) == "mega"
     dup = dup_w = dup_c = 0
     for t in range(rounds):
@@ -175,7 +181,7 @@ def tree_parallel(domain, cfg: SearchConfig, draws, device) -> SearchResult:
         d, dw, dc = _dup_sums(sels)
         dup, dup_w, dup_c = dup + d, dup_w + dw, dup_c + dc
     stats = make_stats(tree.batch, rounds * threads, rounds * threads, dup,
-                       rounds, device)
+                       rounds, tree.device)
     extras = {"dup_within": dup_w.int(), "dup_cross": dup_c.int()}
     return result_from_tree(tree, stats, extras)
 
@@ -187,18 +193,19 @@ def _pipe_draws(domain, cfg):
 
 
 @register_strategy("pipeline", draws=_pipe_draws)
-def pipeline(domain, cfg: SearchConfig, draws, device) -> SearchResult:
+def pipeline(domain, cfg: SearchConfig, draws,
+             root_state) -> SearchResult:
     """The paper's contribution: software-pipelined MCTS.  One tick
     co-schedules  B(wave t-3) | P(wave t-2) | E(wave t-1) | S(wave t)."""
     sp, lanes = cfg.params, _workers(cfg)
     bsz = draws.shape[0]
     n_waves = _ceil_div(cfg.budget, lanes)
-    tree = init_tree(domain, cfg.max_nodes or n_waves * lanes + 2, batch=bsz,
-                     device=device)
+    tree = init_tree(domain, cfg.max_nodes or n_waves * lanes + 2,
+                     root_state=root_state)
     n_ticks = n_waves + PIPE_STAGES - 1                   # fill + drain
     dev = tree.device
     buf_se = S.empty_selection(sp, bsz, lanes, dev)
-    buf_ep = S.empty_expansion(sp, bsz, lanes, domain, dev)
+    buf_ep = S.empty_expansion(sp, tree, lanes)
     buf_pb = S.empty_playout(sp, bsz, lanes, domain.num_actions, dev)
     fused = sp.resolved_wave_select(dev) == "mega"
     dups, dup_w, dup_c, completed, occupancy = [], 0, 0, 0, []

@@ -43,7 +43,7 @@ def _mid_search_tree(vl_mode="loss"):
 # ---------------------------------------------------------------------------
 def test_init_arena_matches():
     ja = JA.init_arena({"v": jnp.int32(7)}, 3, 8)
-    ta = TA.init_arena({"v": torch.tensor(7, dtype=torch.int32)}, 3, 8)
+    ta = TA.init_arena({"v": torch.tensor([7], dtype=torch.int32)}, 3, 8)
     assert_arena_equal(ja, ta)
     assert (ta.batch, ta.max_nodes, ta.num_actions) == (1, 8, 3)
     np.testing.assert_array_equal(TA.live_mask(ta)[0].numpy(),

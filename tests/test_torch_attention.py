@@ -1,0 +1,156 @@
+"""Port parity of the attention kernels' plain versions (K4 flash attention,
+K3 flash-decode) against the JAX package's Pallas kernels in interpret mode
+and their jnp oracles, on the CPU (the CUDA kernels against these plain
+versions on a card: ``test_torch_card_lm.py``).
+
+Inputs come from numpy under a seed.  Tolerances: float32 1e-5 absolute
+and relative (the orders of the sums differ); bfloat16 2e-2 (one bf16 ulp
+of outputs of magnitude ~1, as ``tests/test_kernels.py`` uses).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import ops as jda  # noqa: E402
+from repro.kernels.flash_attention import ops as jfa  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as tda  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tfa  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+
+
+def _rand(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4 flash attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal", [
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 64, 64, 3, 3, 32, True),
+    (2, 100, 100, 4, 1, 64, True),      # not a block multiple, GQA 4
+    (1, 96, 160, 2, 2, 128, False),     # cross-length, non-causal
+    (2, 45, 45, 6, 2, 16, True),        # GQA 3, ragged length
+    (1, 37, 53, 3, 1, 32, False),
+])
+def test_flash_plain_matches_pallas_and_ref(b, sq, sk, h, hkv, d, causal):
+    q, k, v = _rand(0, (b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    want_ker = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True, blk_q=64, blk_k=64))
+    want_ref = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        use_ref=True))
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want_ker, **F32)
+    np.testing.assert_allclose(got, want_ref, **F32)
+
+
+def test_flash_plain_bf16_matches_ref():
+    q, k, v = _rand(1, (2, 100, 4, 64), (2, 100, 2, 64), (2, 100, 2, 64))
+    bf = jnp.bfloat16
+    want = np.asarray(jfa.flash_attention(
+        jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+        causal=True, use_ref=True), np.float32)
+    got = tfa.flash_attention(*(_t(x, torch.bfloat16) for x in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("q_offset,cap", [(0, 5.0), (9, 0.0), (17, 3.0)])
+def test_flash_plain_q_offset_and_soft_cap_match_sdpa(q_offset, cap):
+    """The knobs the Pallas path drops, against ``layers.sdpa`` of both
+    packages (query rows sit at key positions ``i + q_offset``)."""
+    sq, sk = 8, 8 + q_offset
+    q, k, v = _rand(2, (2, sq, 4, 16), (2, sk, 2, 16), (2, sk, 2, 16))
+    want = np.asarray(JL.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, q_offset=q_offset,
+                              logits_soft_cap=cap))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    got = tfa.flash_attention(tq, tk, tv, causal=True, q_offset=q_offset,
+                              logits_soft_cap=cap).numpy()
+    np.testing.assert_allclose(got, want, **F32)
+    port_sdpa = TL.sdpa(tq, tk, tv, causal=True, q_offset=q_offset,
+                        logits_soft_cap=cap).numpy()
+    np.testing.assert_allclose(port_sdpa, want, **F32)
+
+
+def test_flash_plain_masks_kv_padding_and_empty_rows():
+    q, k, v = _rand(3, (1, 6, 2, 8), (1, 10, 2, 8), (1, 10, 2, 8))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    padded = tfa.flash_attention(tq, tk, tv, causal=False, seq_k_valid=7)
+    cut = tfa.flash_attention(tq, tk[:, :7], tv[:, :7], causal=False)
+    torch.testing.assert_close(padded, cut, rtol=1e-6, atol=1e-6)
+    none = tfa.flash_attention(tq, tk, tv, causal=True, q_offset=-6)
+    assert torch.equal(none[:, 0], torch.zeros_like(none[:, 0]))
+    assert torch.isfinite(none).all()
+
+
+# ---------------------------------------------------------------------------
+# K3 flash-decode
+# ---------------------------------------------------------------------------
+def _decode_pair(q, k, v, vl):
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vl))
+    want_ker = np.asarray(jda.decode_attention(*args, interpret=True,
+                                               blk_k=128))
+    want_ref = np.asarray(jda.decode_attention(*args, use_ref=True))
+    got = tda.decode_attention(_t(q), _t(k), _t(v),
+                               torch.from_numpy(vl)).numpy()
+    np.testing.assert_allclose(got, want_ker, **F32)
+    np.testing.assert_allclose(got, want_ref, **F32)
+
+
+@pytest.mark.parametrize("b,sk,h,hkv,d", [
+    (2, 256, 4, 2, 64), (3, 1000, 4, 4, 32), (1, 512, 8, 1, 128),
+    (4, 28, 4, 2, 8), (2, 44, 4, 2, 16), (3, 27, 3, 1, 32),
+])
+def test_decode_plain_matches_pallas_and_ref(b, sk, h, hkv, d):
+    q, k, v = _rand(4, (b, 1, h, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    ragged = np.random.default_rng(5).integers(1, sk + 1, b).astype(np.int32)
+    for vl in (ragged, np.linspace(1, sk, b).astype(np.int32),
+               np.full(b, 1, np.int32), np.full(b, sk, np.int32)):
+        _decode_pair(q, k, v, vl)
+
+
+def test_decode_plain_reads_strided_layer_slices_and_zero_length():
+    """One layer of a batched cache ``[B, L, S, Hkv, D]`` read in place
+    equals the same slice copied; ``valid_len == 0`` gives zeros."""
+    q, kc, vc = _rand(6, (3, 1, 4, 16), (3, 5, 20, 2, 16), (3, 5, 20, 2, 16))
+    vl = torch.tensor([0, 7, 20], dtype=torch.int32)
+    tq, tk, tv = _t(q), _t(kc)[:, 2], _t(vc)[:, 2]
+    assert not tk.is_contiguous()
+    got = tda.decode_attention(tq, tk, tv, vl)
+    want = tda.decode_attention(tq, tk.contiguous(), tv.contiguous(), vl)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _decode_pair(q, kc[:, 2], vc[:, 2], np.array([1, 7, 20], np.int32))
+
+
+def test_wrappers_raise_for_cuda_on_cpu_and_count_no_plain_launch():
+    q, k, v = (_t(x) for x in _rand(7, (1, 4, 2, 8), (1, 4, 2, 8),
+                                    (1, 4, 2, 8)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.decode_attention(q[:, :1], k, v, torch.ones(1, dtype=torch.int32),
+                             impl="cuda")
+    before = (dict(tfa.launches), dict(tda.launches))
+    tfa.flash_attention(q, k, v)
+    tda.decode_attention(q[:, :1], k, v, torch.ones(1, dtype=torch.int32))
+    assert (tfa.launches, tda.launches) == before
+

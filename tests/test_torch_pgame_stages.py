@@ -22,6 +22,7 @@ from repro.core.domains import pgame as jpg  # noqa: E402
 from repro.search import SearchConfig as JCfg  # noqa: E402
 from repro.search import search as jsearch  # noqa: E402
 from repro_torch.core import stages as TS  # noqa: E402
+from repro_torch.core.tree import init_tree  # noqa: E402
 from repro_torch.core.domains import pgame as tpg  # noqa: E402
 from torch_parity import (assert_arena_equal, assert_buf_equal,  # noqa: E402
                           buf_to_port, jax_draws, to_port)
@@ -186,7 +187,7 @@ def test_empty_buffers_and_params():
         assert set(jb) == set(tb)
         assert_buf_equal(jb, tb, list(jb))
     je, te = JS.empty_expansion(jsp, 3, JDOM), \
-        TS.empty_expansion(tsp, 1, 3, TDOM, "cpu")
+        TS.empty_expansion(tsp, init_tree(TDOM, 8), 3)
     assert_buf_equal(je["state"], te["state"], list(je["state"]))
     assert tsp.path_len == jsp.path_len
     tree = TS.with_infl(to_port(_mid_tree("wu")),
