@@ -17,20 +17,29 @@ Phases; each prints one line and any mismatch or error exits non-zero:
   4. attn     the attention kernels (K4 flash, K3 flash-decode) against
               their plain versions at the LM path's full-size shapes in
               bf16 and small shapes in float32; times beside PyTorch's SDPA
-  5. small    P-game ``search_batch`` and LM ``mcts_decode_batch`` (float32
-              smoke model) through the kernels on the card equal the plain
-              versions on the CPU
-  6. full     the P-game main path at full size (FULL below): pipeline /
+  5. rec-kernels  the recurrent kernels (K5 WKV6, K6 SSD) against their
+              plain versions at rwkv6-1.6b / zamba2-1.2b widths in bf16 at
+              the engine's prefill, decode and mcts-forward shapes, and in
+              float32 at the smoke shapes; K3 / K4 at zamba2's attention
+              shapes (32 heads of 128); CUDA-event times and bounds
+  6. small    P-game ``search_batch``, LM ``mcts_decode_batch`` and the
+              serving engine (rwkv6 / zamba2 smoke configs, greedy and
+              mcts), float32, through the kernels on the card equal the
+              plain versions on the CPU
+  7. full     the P-game main path at full size (FULL below): pipeline /
               tree with the fused wave and the lockstep select, both
-              vl_modes and both level_assigns; then the LM main path
-              (LM_FULL: smollm-135m, 16 ragged prompts, 8 tokens each);
-              invariants, launch counts against those each path implies,
-              playouts/s, tokens/s; K1b against its plain version at the
-              LM path's shapes (PUCT rows)
-  7. profile  device busy share and time by kernel of the fused P-game
-              runs and of one LM token's search (torch.profiler), tables
-              in ``chiprun_out/profile.txt`` and ``profile_lm.txt``
-  8. report   the kernels' JSON line, the card line, the last line
+              vl_modes and both level_assigns; the LM main path (LM_FULL:
+              smollm-135m, 16 ragged prompts, 8 tokens each); the serving
+              engine at full width on rwkv6-1.6b and zamba2-1.2b, greedy
+              (REC_GREEDY) and mcts (REC_MCTS); invariants, launch counts
+              against those each path implies, playouts/s, tokens/s; K1b
+              against its plain version at the LM path's shapes
+  8. profile  device busy share and time by kernel of the fused P-game
+              runs, one LM token's search and one engine step of each
+              recurrent run (torch.profiler), tables in
+              ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
+              ``profile_rec.txt``
+  9. report   the kernels' JSON line, the card line, the last line
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
 """
@@ -426,9 +435,12 @@ RUN_KERNELS = {("pipeline", "mega"): ("bes",), ("tree", "mega"): ("se", "b"),
 def _launch_counters():
     from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rwkv6_scan import ops as WK
     from repro_torch.kernels.search_wave import ops as W
+    from repro_torch.kernels.ssm_scan import ops as SS
     from repro_torch.kernels.uct_select import ops as U
-    return (W.launches, U.launches, FA.launches, DA.launches)
+    return (W.launches, U.launches, FA.launches, DA.launches, WK.launches,
+            SS.launches)
 
 
 def all_launches():
@@ -482,7 +494,7 @@ def phase_full(dev):
                                        .float().mean())})
     counts = all_launches()                # read just after the main path
     for k, v in counts.items():
-        if v == 0 and k in SOURCES and k not in LM_KERNELS:
+        if v == 0 and k in SOURCES and k not in LM_KERNELS + REC_KERNELS:
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
@@ -622,24 +634,25 @@ def lm_max_len(lm) -> int:
         + lm["rollout_len"]
 
 
-def bf16_check(what, got, plain, plain32):
+def bf16_check(what, got, plain, plain32, atol=F32_TOL):
     """Hold a bf16 kernel output against its plain version's bf16 output
     (within BF16_RTOL) and against the plain version run in float32 on the
-    same inputs (within BF16_RTOL_F32).  Returns the max |diff| to each and
-    the largest share of its limit that any element used."""
+    same inputs (within BF16_RTOL_F32), each plus ``atol``.  Returns the
+    max |diff| to each and the largest share of its limit that any element
+    used."""
     g = got.detach().cpu().double()
     out = {}
     for name, want, rtol in (("bf16", plain, BF16_RTOL),
                              ("f32", plain32, BF16_RTOL_F32)):
         w = want.detach().cpu().double()
-        d, lim = (g - w).abs(), F32_TOL + rtol * w.abs()
+        d, lim = (g - w).abs(), atol + rtol * w.abs()
         share = d / lim
         i = int(share.argmax())
         if float(share.flatten()[i]) > 1.0:
             fail(f"{what}: the kernel's bf16 output differs from the plain "
                  f"version in {name} by {float(d.flatten()[i])} where "
                  f"|want| is {float(w.abs().flatten()[i])} (limit "
-                 f"{F32_TOL} + {rtol} |want|)")
+                 f"{atol} + {rtol} |want|)")
         out[name] = float(d.max())
         out[name + "_limit_share"] = float(share.flatten()[i])
     return out
@@ -753,7 +766,7 @@ def phase_lm_small(dev):
     from repro_torch.models import transformer as TT
     from repro_torch.serving import mcts_decode_batch
     cfg = get_smoke_config(LM_ARCH)
-    params = TT.init(cfg, seed=LM_SEED)
+    params = TT.init(cfg, seed=LM_SEED, device="cpu")
     prompts = lm_prompts(cfg.vocab_size, LM_SMALL)
     out = {}
     for ws in ("mega", "lockstep"):
@@ -938,6 +951,426 @@ def phase_lm_profile(dev, params):
     return summary or {}
 
 
+# ---------------------------------------------------------------------------
+# the serving engine on the recurrent families: rwkv6-1.6b and zamba2-1.2b
+# ---------------------------------------------------------------------------
+REC_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
+REC_KERNELS = ("wkv6", "ssd")
+REC_SEED = 0
+# greedy: 32 requests over 16 slots (refill), ragged prompts of 64-384
+# tokens, 32 new tokens each
+REC_GREEDY = dict(max_batch=16, max_seq=512, requests=32, prompt_min=64,
+                  prompt_max=384, new_tokens=32, policy="fcfs")
+# mcts: 4 requests, one pipelined search of 16 playouts per token
+REC_MCTS = dict(max_batch=4, max_seq=160, requests=4, prompt_min=32,
+                prompt_max=96, new_tokens=4, method="pipeline",
+                num_actions=4, budget=16, lanes=4, search_depth=4,
+                rollout_len=2, cp=1.0)
+REC_SMALL = dict(max_batch=2, max_seq=24, requests=3, prompt_min=2,
+                 prompt_max=9, new_tokens=3, method="pipeline",
+                 num_actions=3, budget=8, lanes=2, search_depth=2,
+                 rollout_len=2, cp=1.0)
+REC_STATE_RTOL = 1e-5   # float32 states under bf16 inputs, relative (+
+                        # F32_TOL): the update is elementwise and rounds as
+                        # the plain version's separate ops (-fmad=false)
+REC_STEP_TOL = {"rwkv6": 1.0, "zamba2": 0.25}
+# prefill-then-decode_step vs a prefill of the longer prompt, max |diff| of
+# the bf16 model's logits (|max| ~4.6, mean ~0.8): the two paths round bf16
+# activations in other GEMM shapes over 24 / 38 blocks.  The sound paths
+# read 0.193 (rwkv6) and 0.078 (zamba2) on an H100; a step from a zeroed
+# recurrent state read 6.19 / 4.69 and, for zamba2, from zeroed K/V caches
+# 0.559.  Each limit sits between the two (checked on every run)
+
+
+def rec_mcts_ticks(m) -> int:
+    return -(-m["budget"] // m["lanes"]) + 3
+
+
+def rec_prompts(vocab: int, spec, seed: int) -> list:
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(spec["prompt_min"], spec["prompt_max"] + 1,
+                         (spec["requests"],), generator=gen)
+    return [torch.randint(0, vocab, (int(n),), generator=gen).tolist()
+            for n in lens]
+
+
+def rec_engine(cfg, params, spec, mode, dev):
+    import numpy as np
+    from repro_torch.serving import (EngineConfig, MCTSDecodeConfig,
+                                     Request, ServingEngine)
+    m = None
+    if mode == "mcts":
+        m = MCTSDecodeConfig(**{k: spec[k] for k in (
+            "method", "num_actions", "budget", "lanes", "search_depth",
+            "rollout_len", "cp")})
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_batch=spec["max_batch"], max_seq=spec["max_seq"], decode=mode,
+        policy=spec.get("policy", "fcfs"), mcts=m), device=dev)
+    reqs = [Request(uid=uid, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=spec["new_tokens"])
+            for uid, p in enumerate(rec_prompts(cfg.vocab_size, spec,
+                                                REC_SEED + 7))]
+    for r in reqs:
+        eng.submit(r)
+    return eng, reqs
+
+
+def rec_inputs_wkv6(b, t, h, n, dt, dev, gen):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    r, k, v = (rnd(b, t, h, n).mul(0.5).to(dt) for _ in range(3))
+    # the model's decays: exp(-exp(w_raw)), w_raw around the init's -6
+    w = torch.exp(-torch.exp(rnd(b, t, h, n) * 0.5 - 6.0))
+    return r, k, v, w, rnd(h, n).mul(0.3).to(dt), rnd(b, h, n, n) * 0.1
+
+
+def rec_inputs_ssd(b, t, h, p, n, dt, dev, gen):
+    """x, Bm, Cm as slices of one packed conv output, as the model has."""
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    buf = rnd(b, t, h * p + 2 * n).mul(0.5).to(dt)
+    x = buf[..., :h * p].reshape(b, t, h, p)
+    dts = torch.nn.functional.softplus(rnd(b, t, h) - 2.0)
+    a = -torch.exp(rnd(h) * 0.3)
+    return (x, dts, a, buf[..., h * p: h * p + n], buf[..., h * p + n:],
+            torch.ones(h, device=dev), rnd(b, h, p, n) * 0.1)
+
+
+def rec_check(what, got, plain, plain32, n_terms: int):
+    """(y, state) of a kernel against its plain version: y as
+    ``bf16_check``, its absolute part widened by ``n_terms`` float32 ulps
+    of the largest output (kernel and plain version sum each output's
+    ``n_terms`` terms in other orders, so near-cancelling outputs differ by
+    up to that much before the bf16 rounding); the float32 state within
+    F32_TOL + REC_STATE_RTOL relative of the plain version run in
+    float32."""
+    atol = F32_TOL + n_terms * 2.0 ** -24 * float(plain32[0].abs().max())
+    out = bf16_check(what, got[0], plain[0], plain32[0], atol=atol)
+    g, w = got[1].double(), plain32[1].double()
+    d = (g - w).abs()
+    share = float((d / (F32_TOL + REC_STATE_RTOL * w.abs())).max())
+    if share > 1.0:
+        fail(f"{what}: state differs from the plain version in float32 by "
+             f"{float(d.max())} (limit {F32_TOL} + {REC_STATE_RTOL} |want|)")
+    out.update(state=float(d.max()), state_limit_share=share)
+    return out
+
+
+def phase_rec_kernels(dev):
+    """K5 and K6 against their plain versions at full width (rwkv6-1.6b:
+    32 heads of 64; zamba2-1.2b: 64 heads of 64 x 64, one B / C group) in
+    bf16 with float32 decays / dt and states, at the engine's three shapes
+    (prefill: batch 1, T 384; decode: batch 16, T 1; the mcts generic
+    forward: batch 16, T = the search buffer), plus float32 at the smoke
+    shapes; K3 and K4 at zamba2's attention shapes (32 heads of 128).
+    CUDA-event times of each kernel and its plain version."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.ssm_scan import ops as SS
+    gen = torch.Generator(dev).manual_seed(13)
+    bf, f32 = torch.bfloat16, torch.float32
+    buf_len = REC_MCTS["max_seq"] + REC_MCTS["search_depth"] \
+        + REC_MCTS["rollout_len"]
+    shapes = {"prefill": (1, REC_GREEDY["prompt_max"]),
+              "decode": (REC_GREEDY["max_batch"], 1),
+              "mcts": (REC_MCTS["max_batch"] * REC_MCTS["lanes"], buf_len)}
+    rw, zb = get_config("rwkv6-1.6b"), get_config("zamba2-1.2b")
+    h5, n5 = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    d_in = zb.ssm_expand * zb.d_model
+    h6, p6, n6 = d_in // zb.ssm_head_dim, zb.ssm_head_dim, zb.ssm_state
+    res = {"wkv6": {}, "ssd": {}}
+    for tag, (b, t) in shapes.items():
+        a5 = rec_inputs_wkv6(b, t, h5, n5, bf, dev, gen)
+        c5 = lambda c: (c(a5[0]), c(a5[1]), c(a5[2]), a5[3], c(a5[4]),
+                        a5[5])
+        chk = rec_check(f"wkv6 {tag}", WK.wkv6(*a5),
+                        WK.wkv6(*a5, impl="ref"),
+                        WK.wkv6(*c5(lambda x: x.float()), impl="ref"), n5)
+        ms = cuda_time(lambda _: WK.wkv6(*a5))
+        pms = cuda_time(lambda _: WK.wkv6(*a5, impl="ref"), reps=3)
+        # r, k, v in and y out (bf16), w in (f32), u, state in and out
+        nb = 2 * 4 * a5[0].numel() + 4 * a5[3].numel() + 2 * a5[4].numel() \
+            + 2 * 4 * a5[5].numel()
+        # per step and head: y = r^T S (2 N^2), S <- S w + k v^T (3 N^2),
+        # and the bonus v_i * sum_j r_j u_j k_j (5 N)
+        fl = 5.0 * b * t * h5 * n5 * (n5 + 1)
+        res["wkv6"][tag] = dict(chk, ms=ms, plain_ms=pms,
+                                bound=bound_ms(nb, fl), shape=[b, t, h5, n5])
+        a6 = rec_inputs_ssd(b, t, h6, p6, n6, bf, dev, gen)
+        c6 = lambda c: (c(a6[0]), a6[1], a6[2], c(a6[3]), c(a6[4]), a6[5],
+                        a6[6])
+        chk = rec_check(f"ssd {tag}", SS.ssd(*a6), SS.ssd(*a6, impl="ref"),
+                        SS.ssd(*c6(lambda x: x.float()), impl="ref"), n6 + 1)
+        ms = cuda_time(lambda _: SS.ssd(*a6))
+        pms = cuda_time(lambda _: SS.ssd(*a6, impl="ref"), reps=3)
+        # x in and y out, B and C in (bf16), dt in, state in and out
+        nb = 2 * 2 * a6[0].numel() + 2 * 2 * a6[3].numel() \
+            + 4 * a6[1].numel() + 2 * 4 * a6[6].numel()
+        res["ssd"][tag] = dict(chk, ms=ms, plain_ms=pms,
+                               bound=bound_ms(nb, 5.0 * b * t * h6 * p6
+                                              * n6), shape=[b, t, h6, p6, n6])
+        del a5, a6
+    # float32 at the smoke shapes, T = 37 and T = 1
+    f32_err = 0.0
+    rs, zs = get_smoke_config("rwkv6-1.6b"), get_smoke_config("zamba2-1.2b")
+    zd = zs.ssm_expand * zs.d_model
+    for t in (37, 1):
+        a5 = rec_inputs_wkv6(2, t, rs.d_model // rs.rwkv_head_dim,
+                             rs.rwkv_head_dim, f32, dev, gen)
+        a6 = rec_inputs_ssd(2, t, zd // zs.ssm_head_dim, zs.ssm_head_dim,
+                            zs.ssm_state, f32, dev, gen)
+        for got, want in ((WK.wkv6(*a5), WK.wkv6(*a5, impl="ref")),
+                          (SS.ssd(*a6), SS.ssd(*a6, impl="ref"))):
+            f32_err = max(f32_err, max_diff(got[0], want[0]),
+                          max_diff(got[1], want[1]))
+    if f32_err > F32_TOL:
+        fail(f"recurrent kernels differ from their plain versions in "
+             f"float32 by {f32_err} (> {F32_TOL})")
+    # K4 and K3 at zamba2's shared attention (H = Hkv = 32, D = 128),
+    # beside PyTorch's SDPA on the same inputs
+    import torch.nn.functional as F
+    h, hkv, d = zb.n_heads, zb.kv_heads, zb.head_dim
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+    attn = {}
+    for tag, (b, s) in (("prefill", shapes["prefill"]),
+                        ("mcts", shapes["mcts"])):
+        q, k, v = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+        chk = bf16_check(f"flash_attention zamba2 {tag}",
+                         FA.flash_attention(q, k, v),
+                         FA.flash_attention(q, k, v, impl="ref"),
+                         FA.flash_attention(q.float(), k.float(), v.float(),
+                                            impl="ref"))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        attn[f"flash_attention/{tag}"] = dict(
+            chk, ms=cuda_time(lambda _: FA.flash_attention(q, k, v)),
+            plain_ms=cuda_time(lambda _: FA.flash_attention(q, k, v,
+                                                            impl="ref")),
+            sdpa_ms=cuda_time(lambda _: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            bound=bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                           4 * d * h * b * s * (s + 1) / 2, BF16_FLOPS),
+            shape=[b, s, h, d])
+    b, s = REC_GREEDY["max_batch"], REC_GREEDY["max_seq"]
+    n_apps = zb.n_layers // zb.shared_attn_every
+    qd = rnd(b, 1, h, d)
+    kc, vc = rnd(n_apps, b, s, hkv, d), rnd(n_apps, b, s, hkv, d)
+    vl = torch.randint(REC_GREEDY["prompt_min"] + 1,
+                       REC_GREEDY["prompt_max"] + REC_GREEDY["new_tokens"]
+                       + 1, (b,), device=dev, generator=gen).to(torch.int32)
+    ks_, vs_ = kc[n_apps // 2], vc[n_apps // 2]
+    chk = bf16_check("decode_attention zamba2",
+                     DA.decode_attention(qd, ks_, vs_, vl),
+                     DA.decode_attention(qd, ks_, vs_, vl, impl="ref"),
+                     DA.decode_attention(qd.float(), ks_.float(),
+                                         vs_.float(), vl, impl="ref"))
+    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None,
+                                                                None, :]
+    qdt, kdt, vdt = qd.transpose(1, 2), ks_.transpose(1, 2), \
+        vs_.transpose(1, 2)
+    keys = int(vl.sum())
+    attn["decode_attention/decode"] = dict(
+        chk, ms=cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl)),
+        plain_ms=cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl,
+                                                         impl="ref")),
+        sdpa_ms=cuda_time(lambda _: F.scaled_dot_product_attention(
+            qdt, kdt, vdt, attn_mask=mask)),
+        bound=bound_ms(2 * (2 * qd.numel() + 2 * keys * hkv * d) + 4 * b,
+                       4 * d * h * keys, BF16_FLOPS),
+        shape=[b, s, h, d])
+    del kc, vc
+    say("rec-kernels " + " ".join(
+        f"{k}/{tag}:y_err={v['bf16']},vs_f32={v['f32']}"
+        f"({100 * v['f32_limit_share']:.1f}%),state_err={v['state']},"
+        f"ms={v['ms']:.4f},plain_ms={v['plain_ms']:.4f},"
+        f"bound_ms={v['bound'][0]:.4f}"
+        for k in res for tag, v in res[k].items())
+        + f" f32_err={f32_err}; zamba2 attention "
+        + " ".join(f"{k}:vs_f32={v['f32']}({100 * v['f32_limit_share']:.1f}"
+                   f"%),ms={v['ms']:.4f},plain_ms={v['plain_ms']:.4f},"
+                   f"bound_ms={v['bound'][0]:.4f},sdpa_ms={v['sdpa_ms']:.4f}"
+                   for k, v in attn.items()))
+    return res, attn, f32_err
+
+
+def phase_rec_small(dev):
+    """The engine on the float32 smoke configs, greedy and mcts: the
+    card's token streams equal the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.base import get_family
+    out = {}
+    for arch in REC_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = get_family(cfg).init(cfg, seed=REC_SEED, device="cpu")
+        for mode in ("greedy", "mcts"):
+            streams = []
+            for device in (dev, "cpu"):
+                eng, reqs = rec_engine(cfg, params, REC_SMALL, mode, device)
+                eng.run_until_drained()
+                streams.append({r.uid: r.out_tokens for r in reqs})
+            if streams[0] != streams[1]:
+                fail(f"rec small {arch} {mode}: card {streams[0]} != CPU "
+                     f"{streams[1]}")
+            out[f"{arch}/{mode}"] = streams[0]
+    say(f"rec-small engine card == CPU tokens ({', '.join(REC_ARCHS)} smoke "
+        f"configs, greedy and mcts, {REC_SMALL['requests']} ragged requests "
+        f"over {REC_SMALL['max_batch']} slots)")
+    return out
+
+
+def rec_expected(cfg, eng, mode) -> dict:
+    """The kernel launches a drained engine run implies, from its own
+    counts of admissions (one prefill each, greedy) and steps (one
+    decode_step, or one search, each)."""
+    st = eng.stats
+    zamba = cfg.family == "zamba2"
+    n_apps = cfg.n_layers // cfg.shared_attn_every if zamba else 0
+    scan = "ssd" if zamba else "wkv6"
+    if mode == "greedy":
+        want = {scan: cfg.n_layers * (st.admissions + st.steps)}
+        if zamba:
+            want.update(flash_attention=n_apps * st.admissions,
+                        decode_attention=n_apps * st.steps)
+        return want
+    ticks = rec_mcts_ticks(REC_MCTS)
+    # per search: one root forward, then per tick one expand step and
+    # rollout_len - 1 playout steps, each a full forward (generic fallback)
+    fwd = st.steps * (1 + ticks * REC_MCTS["rollout_len"])
+    want = {scan: cfg.n_layers * fwd, "bes": st.steps * ticks}
+    if zamba:
+        want.update(flash_attention=n_apps * fwd, decode_attention=0)
+    return want
+
+
+def rec_step_check(cfg, params, fam, dev) -> dict:
+    """prefill(prompt) then decode_step(token) against a prefill of the
+    prompt one token longer, at full width; a step from a zeroed
+    recurrent state (and, for zamba2, from zeroed K/V caches) must read
+    above the family's REC_STEP_TOL."""
+    gen = torch.Generator().manual_seed(REC_SEED + 3)
+    b, s = 4, 128
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         dtype=torch.int32).to(dev)
+    state = "ssd" if cfg.family == "zamba2" else "wkv"
+    _, cache = fam.prefill(cfg, params, toks[:, :s],
+                           fam.init_cache(cfg, b, s + 8, device=dev))
+    full, _ = fam.prefill(cfg, params, toks,
+                          fam.init_cache(cfg, b, s + 8, device=dev))
+    planted = {}
+    clone = lambda c: {k: v.clone() for k, v in c.items()}
+    c0 = clone(cache)
+    c0[state] = torch.zeros_like(c0[state])
+    planted["zero_state"] = fam.decode_step(cfg, params, c0,
+                                            toks[:, s:])[0]
+    if cfg.family == "zamba2":
+        c1 = clone(cache)
+        c1["k"].zero_()
+        c1["v"].zero_()
+        planted["zero_kv"] = fam.decode_step(cfg, params, c1,
+                                             toks[:, s:])[0]
+    sound = fam.decode_step(cfg, params, cache, toks[:, s:])[0]
+    err = max_diff(sound.float(), full.float())
+    planted = {k: max_diff(v.float(), full.float())
+               for k, v in planted.items()}
+    tol = REC_STEP_TOL[cfg.family]
+    if err > tol:
+        fail(f"rec full {cfg.name}: prefill-then-decode_step differs from "
+             f"the longer prefill by {err} (> {tol})")
+    if min(planted.values()) <= tol:
+        fail(f"rec full {cfg.name}: planted faults read {planted}, within "
+             f"REC_STEP_TOL {tol}: the check cannot see them")
+    return {"step_vs_prefill_max_abs": err, "planted": planted,
+            "logit_abs_max": float(full.float().abs().max()),
+            "logit_abs_mean": float(full.float().abs().mean())}
+
+
+def phase_rec_full(dev):
+    """The serving engine at the published widths (random bf16 weights
+    from the port's ``init``, seed 0) for rwkv6-1.6b and zamba2-1.2b:
+    greedy (REC_GREEDY) and mcts (REC_MCTS).  Each run is one main path:
+    counts set to 0 just before, read just after, and held to the counts
+    the run implies; every request ends with its budget of tokens in the
+    vocabulary; prefill-then-step agrees with the longer prefill.  Then
+    one engine step of each mode is profiled (``chiprun_out/
+    profile_rec.txt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import get_family
+    runs, total, prof, lines = {}, {}, {}, []
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        fam = get_family(cfg)
+        params = fam.init(cfg, seed=REC_SEED, device=dev)
+        for mode, spec in (("greedy", REC_GREEDY), ("mcts", REC_MCTS)):
+            eng, reqs = rec_engine(cfg, params, spec, mode, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()               # this main path starts here
+            t0 = time.perf_counter()
+            out = eng.run_until_drained()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = all_launches()        # read just after it
+            peak = torch.cuda.max_memory_allocated()
+            what = f"rec full {arch} {mode}"
+            want = rec_expected(cfg, eng, mode)
+            for k, w in want.items():
+                if counts[k] != w:
+                    fail(f"{what}: kernel {k} launched {counts[k]} times, "
+                         f"the run implies {w}")
+            summ = out["requests"]
+            if len(summ) != spec["requests"] or any(
+                    v["tokens"] != spec["new_tokens"] or not v["done"]
+                    for v in summ.values()):
+                fail(f"{what}: a request ended short of its budget")
+            for r in reqs:                 # every submitted request
+                if len(r.out_tokens) != spec["new_tokens"] or not all(
+                        0 <= t < cfg.vocab_size for t in r.out_tokens):
+                    fail(f"{what}: request {r.uid} emitted {r.out_tokens}")
+            n_tok = sum(v["tokens"] for v in summ.values())
+            runs[f"{arch}/{mode}"] = {
+                "seconds": secs, "tokens": n_tok,
+                "tokens_per_s": n_tok / secs, "steps": eng.stats.steps,
+                "admissions": eng.stats.admissions, "peak_mem_bytes": peak,
+                "launches": {k: counts[k] for k in want},
+                "ttft_p50_s": out["stats"].get("serving/ttft_p50"),
+                "latency_p50_s": out["latency_p50"]}
+            for k in want:
+                total[k] = total.get(k, 0) + counts[k]
+            del eng
+        runs[f"{arch}/step_check"] = rec_step_check(cfg, params, fam, dev)
+        prof[arch] = rec_profile(cfg, params, dev, lines)
+        del params
+        torch.cuda.empty_cache()
+    say("rec-full " + "; ".join(
+        f"{k} {v['tokens']} tokens in {v['seconds']:.3f} s = "
+        f"{v['tokens_per_s']:.2f} tokens/s, peak "
+        f"{v['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+        + ",".join(f"{a}={b}" for a, b in v["launches"].items())
+        for k, v in runs.items() if "step_check" not in k)
+        + "; step vs prefill " + ", ".join(
+            f"{k.split('/')[0]} {v['step_vs_prefill_max_abs']} (planted "
+            f"{v['planted']})" for k, v in runs.items()
+            if "step_check" in k))
+    write_out("profile_rec.txt", lines)
+    return runs, total, prof
+
+
+def rec_profile(cfg, params, dev, lines) -> dict:
+    """Where a greedy decode step (16 live slots) and one mcts search go
+    (tables appended to ``lines``)."""
+    out = {}
+    for mode, spec in (("greedy", REC_GREEDY), ("mcts", REC_MCTS)):
+        eng, _ = rec_engine(cfg, params, spec, mode, dev)
+        eng.step()                         # admits and prefills all slots
+        summary, table = profile_one(
+            f"{cfg.name} {mode}: one engine step over {spec['max_batch']} "
+            f"live slots", eng.step)
+        if summary:
+            out[mode] = summary
+            lines += table
+        del eng
+    return out
+
+
 SOURCES = {
     "se": ("src/repro_torch/csrc/search_wave.cu",
            "src/repro/kernels/search_wave/kernel.py:403"),
@@ -953,7 +1386,12 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
+    "wkv6": ("src/repro_torch/csrc/rwkv6_scan.cu",
+             "src/repro/kernels/rwkv6_scan/kernel.py:69"),
+    "ssd": ("src/repro_torch/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:65"),
 }
+REC_TIMED = "prefill"   # the shape whose times the kernels line carries
 
 
 def main() -> int:
@@ -970,24 +1408,40 @@ def main() -> int:
     build_s, ptxas = phase_build()
     kern = phase_kernels(dev)
     attn, attn_bf16 = phase_attn_kernels(dev)
+    rec_kern, rec_attn, rec_f32 = phase_rec_kernels(dev)
     small = phase_small(dev)
     lm_small = phase_lm_small(dev)
+    rec_small = phase_rec_small(dev)
     runs, counts = phase_full(dev)
     lm_run, lm_params = phase_lm_full(dev)
-    prof = phase_profile(dev)
     lm_prof = phase_lm_profile(dev, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+    rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
+    prof = phase_profile(dev)
+    # launches on the main paths: P-game, LM decode, the engines
+    paths = (counts, lm_run["launches"], rec_counts)
+    total = {k: sum(p.get(k, 0) for p in paths) for k in SOURCES}
+    idle = [k for k, v in total.items() if v == 0]
+    if idle:
+        fail(f"kernels {idle} were launched on no main path")
     kernels = []
     for k, (src, repl) in SOURCES.items():
         if k in attn:
             err, ms, pms, (bms, by), lib = attn[k]
-            n = lm_run["launches"][k]
+            err = max([err] + [v["bf16"] for t, v in rec_attn.items()
+                               if t.startswith(k)])
+        elif k in rec_kern:
+            t = rec_kern[k][REC_TIMED]
+            err = max(v["bf16"] for v in rec_kern[k].values())
+            ms, pms, (bms, by), lib = t["ms"], t["plain_ms"], t["bound"], None
         else:
             err, ms, pms, (bms, by) = kern["loss/independent"][k]
-            err, lib, n = max(kern[t][k][0] for t in kern), None, counts[k]
+            err, lib = max(kern[t][k][0] for t in kern), None
             if k == "bes":
                 err = max(err, lm_run["bes_max_abs_err"])
         kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": n,
+                        "replaces": repl, "launches": total[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lib})
     detail = {"card": card, "device": name, "build_s": build_s,
@@ -996,6 +1450,10 @@ def main() -> int:
               "small_float_diff": small, "lm_small_tokens": lm_small,
               "full_runs": runs, "launch_counts": counts, "profile": prof,
               "lm_full": lm_run, "lm_profile": lm_prof,
+              "rec_kernels": rec_kern, "rec_attn_zamba2": rec_attn,
+              "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,
+              "rec_full": rec_runs, "rec_launches": rec_counts,
+              "rec_profile": rec_prof, "launches_total": total,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     write_out("chip_smoke.json", [json.dumps(detail, indent=1)])

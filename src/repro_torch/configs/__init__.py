@@ -2,8 +2,9 @@
 
 ``get_config(arch)`` -> full ModelConfig (the published dims);
 ``get_smoke_config(arch)`` -> reduced same-family config for CPU tests.
-Copies of ``repro.configs`` for the dense family (the other families come
-with their models, ROADMAP Queue 1 item 13).
+Copies of ``repro.configs`` for the ported families: the four dense
+architectures, rwkv6-1.6b (``rwkv6``) and zamba2-1.2b (``zamba2``); the
+other families come with their models (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, List
 from repro_torch.models.base import ModelConfig
 
 ARCHS: List[str] = ["smollm-135m", "qwen2-0.5b", "minicpm-2b",
-                    "stablelm-3b"]
+                    "stablelm-3b", "rwkv6-1.6b", "zamba2-1.2b"]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_")
                             for a in ARCHS}

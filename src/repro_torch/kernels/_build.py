@@ -19,14 +19,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("uct_select", "search_wave", "flash_attention",
-           "decode_attention")
+           "decode_attention", "rwkv6_scan", "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -127,7 +127,22 @@ def resolve_impl(impl, t: torch.Tensor) -> str:
     return impl
 
 
-def check_operand(t: torch.Tensor, name: str, dtype, shape, device):
+def packed(t: torch.Tensor, k: int) -> bool:
+    """Whether the last ``k`` dims of ``t`` are packed (size-1 dims take
+    any stride)."""
+    want = 1
+    for d in range(t.dim() - 1, t.dim() - 1 - k, -1):
+        if t.shape[d] != 1 and t.stride(d) != want:
+            return False
+        want *= t.shape[d]
+    return True
+
+
+def check_operand(t: torch.Tensor, name: str, dtype, shape, device,
+                  packed_trailing: Optional[int] = None):
+    """Right device, dtype and shape, and contiguous; with
+    ``packed_trailing=k`` only the last ``k`` dims need be packed (the
+    kernel reads the leading ones through their strides)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -135,5 +150,9 @@ def check_operand(t: torch.Tensor, name: str, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if packed_trailing is None:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    elif not packed(t, packed_trailing):
+        raise ValueError(f"{name} needs packed trailing dims, got strides "
+                         f"{t.stride()}")

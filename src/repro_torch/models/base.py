@@ -21,6 +21,11 @@ dict whose leaves are ``[*lead, ...]``; ``step_fn`` appends ``tok
 it: a caller that still needs the old cache passes a copy.  Cache entries
 at positions ``>= pos`` are never read before they are written.
 
+For the serving engine's greedy mode a family also provides the batched
+trio of the JAX package, ``init_cache(cfg, batch, max_seq, device=)``,
+``prefill(cfg, params, tokens, cache)`` and ``decode_step(cfg, params,
+cache, tokens)``, whose cache leaves are ``[L, B, ...]`` (or ``[B]``).
+
 Families without the pair fall back to ``seq_prefill``/``seq_step``'s
 generic path: the "cache" is the token buffer, and each step re-runs the
 full forward — correct for every family, just uncached.
@@ -141,7 +146,8 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _FAMILIES: Dict[str, Any] = {}
 
-_FAMILY_MODULES = {"dense": "transformer"}
+_FAMILY_MODULES = {"dense": "transformer", "rwkv6": "rwkv6",
+                   "zamba2": "zamba2"}
 
 
 def register_family(name: str):

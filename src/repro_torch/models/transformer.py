@@ -9,7 +9,10 @@ layers takes the place of ``lax.scan``.
 
 Attention: the prompt prefill runs the flash kernel (K4) through
 ``layers.attention``; every incremental token runs the flash-decode kernel
-(K3) on one layer's slice of the cache, read in place.
+(K3) on one layer's slice of the cache, read in place.  Two decode
+interfaces: ``prefill_fn`` / ``step_fn`` over any leading shape (MCTS
+decode) and the batched ``init_cache`` / ``prefill`` / ``decode_step``
+with a ``[L, B, S, Hkv, D]`` cache (the serving engine's greedy mode).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig, register_family, tree_to
+from repro_torch.search.api import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -35,16 +39,19 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cpu"):
+def init(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights with the JAX ``init``'s tree, dtypes and scales
     (``dense_init`` 1/sqrt(fan_in), ``embed_init`` 0.02), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the CPU."""
+    ``torch.Generator`` seeded with ``seed`` on the CPU and placed on
+    ``device`` (``cuda:0`` by default; raises without a card unless
+    asked for the CPU)."""
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {"embed": L.init_embed(cfg, gen),
               "layers": _stack([_init_block(cfg, gen)
                                 for _ in range(cfg.n_layers)]),
               "final_norm": L.init_norm(cfg)}
-    return tree_to(params, device)
+    return tree_to(params, dev)
 
 
 def layer_params(params, i: int):
@@ -152,6 +159,48 @@ def step_fn(cfg: ModelConfig, params, cache, tok, pos):
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.lm_head(cfg, params["embed"], x)[:, 0].float()
     return logits.reshape(lead + logits.shape[-1:]), cache
+
+
+# ---------------------------------------------------------------------------
+# batched serving decode: prefill + one token per row with a [L, B, ...]
+# cache (the serving engine's greedy mode)
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
+               device=None):
+    """Zero ``{k, v: [L, B, max_seq, Hkv, D], pos: [B] i32}`` on
+    ``device`` (``cuda:0`` by default)."""
+    dev = resolve_device(device)
+    dtype = dtype or cfg.jdtype
+    shape = (cfg.n_layers, batch_size, max_seq, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32,
+                               device=dev)}
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache):
+    """``tokens [B, S]`` -> (logits ``[B, 1, V]`` at the last position,
+    cache): the prompt's K/V go into positions ``[0, S)`` of
+    ``cache["k"]`` / ``["v"]`` in place."""
+    b, s = tokens.shape
+    x, kv = _prefill_stack(cfg, params, tokens)
+    for name in ("k", "v"):
+        cache[name][:, :, :s] = kv[name].transpose(0, 1) \
+            .to(cache[name].dtype)
+    out = {"k": cache["k"], "v": cache["v"],
+           "pos": torch.full((b,), s, dtype=torch.int32,
+                             device=tokens.device)}
+    return L.lm_head(cfg, params["embed"], x[:, -1:]), out
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """``tokens [B, 1]`` -> (logits ``[B, 1, V]`` f32, cache): each row
+    appends its token at its own ``pos`` — ``step_fn`` on the batch-major
+    view of the ``[L, B, ...]`` cache, written in place."""
+    view = {name: cache[name].transpose(0, 1) for name in ("k", "v")}
+    logits, _ = step_fn(cfg, params, view, tokens[:, 0], cache["pos"])
+    out = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + 1}
+    return logits[:, None], out
 
 
 register_family("dense")(sys.modules[__name__])

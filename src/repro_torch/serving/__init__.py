@@ -1,11 +1,20 @@
-"""repro_torch.serving — MCTS-guided LM decoding (the stateless searcher).
+"""repro_torch.serving — MCTS-guided LM decoding and the serving engine.
 
-The request-lifecycle half of ``repro.serving`` (``ReusableSearcher``,
-``ServingEngine``, the scheduler and its stats) is ROADMAP Queue 1 item
-10.
+The counterpart of ``repro.serving``: the stateless batched searcher
+(``mcts_decode``, ``mcts_decode_batch``, ``make_batched_searcher``), the
+continuous-batching ``ServingEngine`` in its greedy and mcts modes, and
+copies of the request scheduler and serving stats.  The cross-token
+``ReusableSearcher`` (``kv_splice`` / ``tree_reuse``) is ROADMAP Queue 1
+item 10.
 """
+from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: F401
 from repro_torch.serving.mcts_decode import (  # noqa: F401
     MCTSDecodeConfig, make_batched_searcher, mcts_decode, mcts_decode_batch)
+from repro_torch.serving.scheduler import (POLICIES, Admit,  # noqa: F401
+                                           Evict, Request, RequestScheduler)
+from repro_torch.serving.stats import ServingStats, percentile  # noqa: F401
 
-__all__ = ["MCTSDecodeConfig", "make_batched_searcher", "mcts_decode",
-           "mcts_decode_batch"]
+__all__ = ["Admit", "EngineConfig", "Evict", "MCTSDecodeConfig", "POLICIES",
+           "Request", "RequestScheduler", "ServingEngine", "ServingStats",
+           "make_batched_searcher", "mcts_decode", "mcts_decode_batch",
+           "percentile"]

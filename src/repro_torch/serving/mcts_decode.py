@@ -19,9 +19,9 @@ prefills every request's prefix ONCE per token, as one batched prefill,
 takes the root top-k from those logits and hands the cache to the search
 as its roots (``CachedLMDecodeDomain.root_cache`` / ``root_logits``).
 
-Not ported yet (ROADMAP Queue 1 item 10): the cross-token carries
-``kv_splice`` and ``tree_reuse`` (``ReusableSearcher``), multi-device
-meshes, and the serving engine and scheduler.
+Not ported yet: the cross-token carries ``kv_splice`` and ``tree_reuse``
+(``ReusableSearcher``, ROADMAP Queue 1 item 10) and multi-device meshes
+(item 12).
 """
 from __future__ import annotations
 

@@ -88,7 +88,7 @@ def test_decode_on_card_equals_cpu(wave_select):
     """The card (flash / flash-decode / search-wave kernels) emits the
     CPU's tokens for ragged prompts."""
     dev = _card()
-    params = TT.init(CFG, seed=0)
+    params = TT.init(CFG, seed=0, device="cpu")
     dcfg = MCTSDecodeConfig(method="pipeline", num_actions=3, budget=9,
                             lanes=3, search_depth=2, rollout_len=2,
                             wave_select=wave_select)

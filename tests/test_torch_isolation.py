@@ -60,6 +60,40 @@ def test_search_without_device_raises_when_no_cuda(monkeypatch):
     assert res.action_visits.device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
+def test_model_init_and_engine_without_device_raise_when_no_cuda(
+        arch, monkeypatch):
+    """A family's ``init`` / ``init_cache`` and the serving engine run on
+    ``cuda:0`` by default, as ``search`` does: without a card they raise
+    unless asked for the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.base import get_family
+    from repro_torch.serving import (EngineConfig, MCTSDecodeConfig,
+                                     ServingEngine)
+    cfg = get_smoke_config(arch)
+    fam = get_family(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fam.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fam.init_cache(cfg, 1, 8)
+    params = fam.init(cfg, seed=0, device="cpu")
+    assert {t.device.type for t in _leaves(params)} == {"cpu"}
+    for mode in ("greedy", "mcts"):
+        ecfg = EngineConfig(max_batch=1, max_seq=8, decode=mode,
+                            mcts=MCTSDecodeConfig(budget=4, lanes=2))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServingEngine(cfg, params, ecfg)
+        assert ServingEngine(cfg, params, ecfg, device="cpu").mode == mode
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def test_cuda_request_with_cpu_tensors_raises():
     n = torch.ones(3, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
