@@ -4,28 +4,32 @@
 Run from the repository root on a machine with an H100 (sm_90a) and the
 CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
 
 Phases; each prints one line and any mismatch or error exits non-zero:
 
   1. env      the card's name and power limit, torch's device name
   2. build    nvcc of every ``src/repro_torch/csrc/*.cu``, in parallel
+              (with ``--before DIR``, also the earlier attention sources in
+              DIR, timed beside the kernels); the SASS of the attention
+              kernels must hold HGMMA (K4 bf16) and 16-byte LDGSTS (K3)
   3. kernels  the search kernels (K1, K2) against their plain PyTorch
               versions on the same full-size arena snapshots, taken
               mid-search from a run of the plain path; integers must be
-              equal, ``value`` within VALUE_RTOL; CUDA-event times
-  4. attn     the attention kernels (K4 flash, K3 flash-decode) against
-              their plain versions at the LM path's full-size shapes in
-              bf16 and small shapes in float32; times beside PyTorch's SDPA
+              equal, ``value`` within VALUE_RTOL
+  4. attn     the attention kernels (K4 bf16 on the tensor cores and
+              float32, K3 flash-decode) against their plain versions at the
+              LM path's full-size shapes in bf16 and small shapes in
+              float32; times beside PyTorch's SDPA
   5. rec-kernels  the recurrent kernels (K5 WKV6, K6 SSD) against their
               plain versions at rwkv6-1.6b / zamba2-1.2b widths in bf16 at
               the engine's prefill, decode and mcts-forward shapes, and in
               float32 at the smoke shapes; K3 / K4 at zamba2's attention
-              shapes (32 heads of 128); CUDA-event times and bounds
+              shapes (32 heads of 128)
   6. small    P-game ``search_batch``, LM ``mcts_decode_batch`` and the
               serving engine (rwkv6 / zamba2 smoke configs, greedy and
               mcts), float32, through the kernels on the card equal the
-              plain versions on the CPU
+              plain versions on the CPU; the float32 K4's main path
   7. full     the P-game main path at full size (FULL below): pipeline /
               tree with the fused wave and the lockstep select, both
               vl_modes and both level_assigns; the LM main path (LM_FULL:
@@ -39,13 +43,24 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               recurrent run (torch.profiler), tables in
               ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
               ``profile_rec.txt``
-  9. report   the kernels' JSON line, the card line, the last line
+  9. report   the wrappers' host cost, the kernels' JSON line, the card
+              line, the last line
+
+Kernel times (``cuda_time``): ``TIMING_REPS`` back-to-back calls between
+two CUDA events and one synchronise, after two warm-up calls and queued
+behind a spin kernel, so that the device, not the host, sets the pace;
+operands the real caller finds cold (K3's cache slices) rotate so that
+together they exceed the 50 MB L2; kernel, plain version, SDPA and the
+earlier kernel timed in turns, the median of ``TURNS``.  Host cost
+(``host_us``): a wrapper's microseconds per call on the host clock over
+many calls with no synchronise.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -67,7 +82,12 @@ FULL = dict(batch=128, num_actions=16, game_depth=12, budget=4096, lanes=32,
 SMALL = dict(batch=4, num_actions=4, game_depth=6, budget=64, lanes=8,
              max_depth=6, cp=0.7)
 SNAPSHOT_TICKS = 24
-TIMING_REPS = 20
+TIMING_REPS = 20      # back-to-back calls between two CUDA events
+TURNS = 3             # kernel / plain / library timed in turns; the median
+HOST_CALLS = 200      # wrapper calls timed on the host clock
+HOLD_CYCLES = 20_000_000   # ~10 ms spin before a timed run (see cuda_time)
+HOST: dict = {}       # kernel -> host microseconds per wrapper call
+BEFORE: dict = {}     # the parent's attention kernels (--before), bound
 
 
 def fail(msg: str) -> None:
@@ -141,22 +161,64 @@ SEL_KEYS = ("path", "leaf", "depth", "valid", "dup", "dup_within",
 ES_KEYS = ("leaf", "new", "can", "path", "node", "valid")
 
 
-def cuda_time(fn, reps=TIMING_REPS, setup=None) -> float:
-    """Mean ms of ``fn(setup())`` over ``reps`` runs, CUDA events around
-    ``fn`` only (``setup`` runs outside the timed span)."""
-    total = 0.0
-    for _ in range(reps + 2):
-        arg = setup() if setup else None
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(arg)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-        if _ == 1:                         # two warm-up runs
-            total = 0.0
-    return total / reps
+def cuda_time(fn, reps=TIMING_REPS, setup=None, args=None) -> float:
+    """Mean ms per call: ``reps`` back-to-back calls of ``fn(arg)`` between
+    two CUDA events and one synchronise, after two warm-up calls.  A spin
+    kernel holds the device before the first event while the host queues
+    the calls, so a kernel faster than its wrapper's host cost is timed
+    back to back, not at the host's pace (calls that synchronise inside,
+    as some plain versions do, stay host-paced).
+    ``setup()`` makes each call's argument, all before the timed span (for
+    kernels that update their operands in place); ``args`` is a list the
+    calls rotate through (operands the real caller finds cold: together
+    they exceed the 50 MB L2)."""
+    n = reps + 2
+    if setup is not None:
+        arg = [setup() for _ in range(n)]
+    elif args is not None:
+        arg = [args[i % len(args)] for i in range(n)]
+    else:
+        arg = [None] * n
+    fn(arg[0])
+    fn(arg[1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)   # the host queues the calls meanwhile
+    start.record()
+    for a in arg[2:]:
+        fn(a)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_turns(cases: dict, turns: int = TURNS) -> dict:
+    """``cases`` = ``{name: (fn, cuda_time kwargs)}``, each timed by
+    ``cuda_time`` in turns (in order, then reversed, ...), ``turns`` times
+    round inside this one process; the median per name."""
+    got = {k: [] for k in cases}
+    for t in range(turns):
+        for k in (list(cases) if t % 2 == 0 else list(cases)[::-1]):
+            fn, kw = cases[k]
+            got[k].append(cuda_time(fn, **kw))
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def host_us(fn, setup=None, calls=HOST_CALLS) -> float:
+    """Host microseconds per call of a kernel wrapper: ``calls`` calls on
+    the host clock with no synchronise inside the span (the wrapper's own
+    cost: operand checks, binding, allocation, the enqueue).  ``setup()``
+    makes each call's argument before the span."""
+    args = [setup() if setup else None for _ in range(calls + 1)]
+    fn(args[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in args[1:]:
+        fn(a)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -182,18 +244,122 @@ def phase_env():
     return card, name
 
 
-def phase_build():
+def phase_build(before=None):
+    """nvcc of every source in parallel (and, with ``--before DIR``, of
+    the parent's attention sources in DIR, into ``chiprun_out/before``);
+    then the SASS of the attention kernels: every ``fa_wgmma_kernel`` must
+    hold HGMMA (wgmma) and UTMALDG (TMA) instructions and every
+    ``da_kernel`` 16-byte LDGSTS (cp.async) copies."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    procs = start_before(before) if before else {}
     logs = _build.build_all(force=True)
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the parent's {name}.cu:\n{out}")
     secs = time.perf_counter() - t0
     regs = []
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                regs.append(f"{name}: {line.strip()}")
-    say(f"build {len(logs)} sources in {secs:.2f} s (parallel nvcc)")
-    return secs, regs
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                regs.append(f"{name}: {fn[:100]}: {line.strip()}")
+    say(f"build {len(logs)} sources in {secs:.2f} s (parallel nvcc)"
+        + (f" and the parent's {sorted(procs)}" if procs else ""))
+    if procs:
+        bind_before({k: lib for k, (_, lib) in procs.items()})
+    return secs, regs, sass_check(_build.BUILD_DIR)
+
+
+def sass_check(build_dir) -> dict:
+    """Count HGMMA (wgmma) and UTMALDG (TMA loads) in each
+    ``fa_wgmma_kernel`` and 16-byte LDGSTS (cp.async) in each ``da_kernel``
+    of the built libraries (``cuobjdump -sass``)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        say("sass not measured (no cuobjdump)")
+        return {}
+    counts = {}
+    for lib, fn, what in (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
+                          ("flash_attention", "fa_wgmma_kernel", "UTMALDG"),
+                          ("decode_attention", "da_kernel", "LDGSTS")):
+        dump = subprocess.run([tool, "-sass", str(build_dir
+                                                  / f"lib{lib}.so")],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for chunk in dump.split("Function : ")[1:]:
+            head = chunk.split("\n", 1)[0]
+            if fn not in head:
+                continue
+            n = sum(1 for line in chunk.splitlines() if what in line
+                    and (what != "LDGSTS" or ".128" in line))
+            if n == 0:
+                fail(f"{lib}: {head[:90]} has no {what} instruction")
+            counts[f"{what} {head.strip()[:120]}"] = n
+    say("sass " + ", ".join(
+        f"{fn}: {sum(v for k, v in counts.items() if k.startswith(what))} "
+        f"{what} in {sum(1 for k in counts if k.startswith(what))} "
+        f"instantiations" for fn, what in (("fa_wgmma_kernel", "HGMMA"),
+                                           ("fa_wgmma_kernel", "UTMALDG"),
+                                           ("da_kernel", "LDGSTS"))))
+    return counts
+
+
+# the parent's attention entry points (``--before``), timed beside the
+# redesigned kernels in one process
+BEFORE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def start_before(src_dir) -> dict:
+    from repro_torch.kernels import _build
+    out = ROOT / "chiprun_out" / "before"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("flash_attention", "decode_attention"):
+        lib = out / f"lib{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *BEFORE_FLAGS, "-o", str(lib),
+             str(Path(src_dir) / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def bind_before(libs) -> None:
+    import ctypes
+    import math
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    fa = ctypes.CDLL(str(libs["flash_attention"])).flash_attention_fwd
+    fa.argtypes, fa.restype = [P] * 4 + [I] * 9 + [F, F, I, P], I
+    da = ctypes.CDLL(str(libs["decode_attention"])).decode_attention_fwd
+    da.argtypes, da.restype = [P] * 5 + [I] * 5 + [L] * 4 + [F, I, P], I
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def run_fa(q, k, v, out, causal):
+        b, sq, h, d = q.shape
+        rc = fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                sq, k.shape[1], k.shape[1], h, k.shape[2], d, int(causal), 0,
+                1.0 / math.sqrt(d), 0.0, code[q.dtype], stream())
+        if rc:
+            fail(f"the parent's flash_attention: CUDA error {rc}")
+        return out
+
+    def run_da(q, k, v, vl, out):
+        b, _, h, d = q.shape
+        rc = da(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
+                out.data_ptr(), b, k.shape[1], h, k.shape[2], d, k.stride(0),
+                k.stride(1), v.stride(0), v.stride(1), 1.0 / math.sqrt(d),
+                code[q.dtype], stream())
+        if rc:
+            fail(f"the parent's decode_attention: CUDA error {rc}")
+        return out
+    BEFORE.update(flash_attention=run_fa, decode_attention=run_da)
 
 
 def make_domain(cfg):
@@ -241,9 +407,11 @@ def wave_bytes(tree, paths, a, extra_rows=0) -> float:
 
 
 def phase_kernels(dev):
+    """K1 / K2 against their plain versions on full-size snapshots; times
+    in turns; the wrappers' host cost (``HOST``)."""
     from repro_torch.kernels.search_wave import ops as W
     from repro_torch.kernels.uct_select import ops as U
-    results = {}
+    results, host = {}, HOST
     lanes, a = FULL["lanes"], FULL["num_actions"]
     reset_launches()
     for mode, assign in (("loss", "independent"), ("wu", "running")):
@@ -295,43 +463,57 @@ def phase_kernels(dev):
         if err_t or err_r:
             fail(f"uct_select {tag}: kernel picks differ from the plain "
                  f"version (tiles {err_t}, running {err_r})")
-        # timings at these shapes (fresh clones outside the timed span)
+        # timings at these shapes, kernel and plain version in turns
+        # (fresh clones made outside the timed span)
         se_leaf = se["leaf"].to(torch.int32).contiguous()
         se_valid = se["valid"].contiguous()
         pbk = W.pack_pb(tree, sp, pb)
-        fresh = lambda: clone_tree(tree)
-        t_se = cuda_time(lambda t: W.launch_se(t, sp, lanes, True),
-                         setup=fresh)
-        p_se = cuda_time(lambda t: W.se(t, sp, lanes, True, impl="ref"),
-                         setup=fresh)
-        t_bes = cuda_time(lambda t: W.launch_bes(t, sp, lanes, True,
-                                                 se_leaf, se_valid, pbk),
-                          setup=fresh)
-        p_bes = cuda_time(lambda t: W.bes(t, sp, lanes, True, se, pb,
-                                          impl="ref"), setup=fresh)
-        t_b = cuda_time(lambda t: W.launch_b(t, sp, pbk), setup=fresh)
-        p_b = cuda_time(lambda t: W.b(t, sp, pb, impl="ref"), setup=fresh)
+        fresh = dict(setup=lambda: clone_tree(tree))
         rows = node.numel()
         flat = [x.reshape(rows, a).float().contiguous() for x in (n_, w_, v_)]
         pnf = pn.reshape(rows).float().contiguous()
         vf = valid.reshape(rows, a).contiguous()
         out = torch.empty(rows, dtype=torch.int32, device=dev)
         wu = mode == "wu"
-        t_t = cuda_time(lambda _: U.launch_tiles(
-            flat[0], flat[1], flat[2], flat[2], pnf, vf, out, cp=sp.cp,
-            vl_weight=sp.vl_weight, wu=wu))
-        p_t = cuda_time(lambda _: U.uct_argmax(n_, w_, v_, pn, impl="ref",
-                                               **kw))
         board = (tree.batch, lanes, a)
         out2 = torch.empty(tree.batch, lanes, dtype=torch.int32, device=dev)
         pid = node.to(torch.int32).contiguous()
-        t_r = cuda_time(lambda _: U.launch_running(
-            flat[0].view(board), flat[1].view(board), flat[2].view(board),
-            flat[2].view(board), pnf.view(tree.batch, lanes),
-            vf.view(board), pid, out2, cp=sp.cp, vl_weight=sp.vl_weight,
-            wu=wu))
-        p_r = cuda_time(lambda _: U.uct_argmax_running(
-            n_, w_, v_, pn, node, impl="ref", **kw))
+        tm = time_turns({
+            "se": (lambda t: W.launch_se(t, sp, lanes, True), fresh),
+            "se/plain": (lambda t: W.se(t, sp, lanes, True, impl="ref"),
+                         fresh),
+            "bes": (lambda t: W.launch_bes(t, sp, lanes, True, se_leaf,
+                                           se_valid, pbk), fresh),
+            "bes/plain": (lambda t: W.bes(t, sp, lanes, True, se, pb,
+                                          impl="ref"), fresh),
+            "b": (lambda t: W.launch_b(t, sp, pbk), fresh),
+            "b/plain": (lambda t: W.b(t, sp, pb, impl="ref"), fresh),
+            "uct_argmax_tiles": (lambda _: U.launch_tiles(
+                flat[0], flat[1], flat[2], flat[2], pnf, vf, out, cp=sp.cp,
+                vl_weight=sp.vl_weight, wu=wu), {}),
+            "uct_argmax_tiles/plain": (lambda _: U.uct_argmax(
+                n_, w_, v_, pn, impl="ref", **kw), {}),
+            "uct_argmax_running": (lambda _: U.launch_running(
+                flat[0].view(board), flat[1].view(board),
+                flat[2].view(board), flat[2].view(board),
+                pnf.view(tree.batch, lanes), vf.view(board), pid, out2,
+                cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
+            "uct_argmax_running/plain": (lambda _: U.uct_argmax_running(
+                n_, w_, v_, pn, node, impl="ref", **kw), {})})
+        if tag == "loss/independent":     # the wrappers the paths call
+            host["se"] = host_us(lambda t: W.se(t, sp, lanes, True,
+                                                impl="cuda"),
+                                 calls=30, **fresh)
+            host["bes"] = host_us(lambda t: W.bes(t, sp, lanes, True, se,
+                                                  pb, impl="cuda"),
+                                  calls=30, **fresh)
+            host["b"] = host_us(lambda t: W.b(t, sp, pb, impl="cuda"),
+                                calls=30, **fresh)
+            host["uct_argmax_tiles"] = host_us(lambda _: U.uct_argmax(
+                n_, w_, v_, pn, impl="cuda", **kw))
+            host["uct_argmax_running"] = host_us(
+                lambda _: U.uct_argmax_running(n_, w_, v_, pn, node,
+                                               impl="cuda", **kw))
         # bounds from this snapshot's data
         sel_paths = sel1["path"]
         b_sel = wave_bytes(tree, sel_paths, a) + sel_paths.numel() * 4 * 2
@@ -341,16 +523,17 @@ def phase_kernels(dev):
                           extra_rows=int(pb["is_new"].sum()) * a * 4)
         board_bytes = rows * a * 13 + rows * 8
         board_flops = rows * a * 15
-        results[tag] = {
-            "se": (err_se, t_se, p_se, bound_ms(b_sel, f_sel)),
-            "bes": (err_bes, t_bes, p_bes, bound_ms(b_sel + b_pb, f_sel)),
-            "b": (err_b, t_b, p_b, bound_ms(b_pb, 0.0)),
-            "uct_argmax_tiles": (float(err_t), t_t, p_t,
-                                 bound_ms(board_bytes, board_flops)),
-            "uct_argmax_running": (float(err_r), t_r, p_r,
-                                   bound_ms(board_bytes + rows * 4,
-                                            board_flops)),
-        }
+        bounds = {"se": bound_ms(b_sel, f_sel),
+                  "bes": bound_ms(b_sel + b_pb, f_sel),
+                  "b": bound_ms(b_pb, 0.0),
+                  "uct_argmax_tiles": bound_ms(board_bytes, board_flops),
+                  "uct_argmax_running": bound_ms(board_bytes + rows * 4,
+                                                 board_flops)}
+        errs = {"se": err_se, "bes": err_bes, "b": err_b,
+                "uct_argmax_tiles": float(err_t),
+                "uct_argmax_running": float(err_r)}
+        results[tag] = {k: (errs[k], tm[k], tm[k + "/plain"], bounds[k])
+                        for k in bounds}
         del dom, tree, se, ep, pb
     worst = {k: max(results[t][k][0] for t in results)
              for k in results["loss/independent"]}
@@ -504,6 +687,14 @@ def phase_full(dev):
     return runs, counts
 
 
+# the port's kernels as the trace names them (a prefix each, so that
+# PyTorch's own "..._cuda_kernel" names do not match)
+PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
+                "::da_combine<", "sw_se_kernel", "sw_bes_kernel",
+                "sw_b_kernel", "uct_tiles_kernel", "uct_running_kernel",
+                "::wkv6_kernel<", "::ssd_kernel<")
+
+
 def profile_one(what: str, run):
     """Wall time of ``run()`` untraced (after a warm run), then one run
     traced by torch.profiler (CUPTI).  Device busy time is the sum over
@@ -544,9 +735,17 @@ def profile_one(what: str, run):
                  "among the events above):")
     lines += [f"    {us / 1e3:10.3f} ms  {c:7d}x  {k[:90]}"
               for k, (us, c) in top_o]
+    port = sorted(((k, v) for k, v in kern.items()
+                   if any(n in k for n in PORT_KERNELS)),
+                  key=lambda kv: -kv[1][0])
+    lines.append("  the port's kernels (share of device busy time):")
+    lines += [f"    {us / 1e3:10.3f} ms  {c:7d}x  "
+              f"{100 * us / 1e6 / busy:5.1f}%  {k[:80]}"
+              for k, (us, c) in port]
     say(f"profile {what} wall={wall:.3f}s busy={busy:.3f}s "
         f"idle={100 * (1 - busy / wall):.1f}% top={top_k[0][0][:40]}")
     return {"wall_s": wall, "busy_s": busy,
+            "port_kernels": [(k, us, c) for k, (us, c) in port],
             "device_events": sum(c for _, c in kern.values()),
             "top_events": [(k, us, c) for k, (us, c) in top_k],
             "top_ops": [(k, us, c) for k, (us, c) in top_o]}, lines
@@ -589,7 +788,7 @@ LM_FULL = dict(batch=16, prompt_min=64, prompt_max=256, new_tokens=8,
 LM_SMALL = dict(batch=3, prompt_min=3, prompt_max=9, new_tokens=3,
                 method="pipeline", num_actions=3, budget=16, lanes=4,
                 search_depth=3, rollout_len=2, cp=1.0)
-LM_KERNELS = ("flash_attention", "decode_attention")
+LM_KERNELS = ("flash_attention", "flash_attention_bf16", "decode_attention")
 LM_SEED = 0
 LM_BES_TICKS = 3  # K1b's check snapshot: waves 0-2 in flight, so the tick
                   # checked backs up wave 0, expands wave 2, selects wave 3
@@ -658,13 +857,100 @@ def bf16_check(what, got, plain, plain32, atol=F32_TOL):
     return out
 
 
+def rounded_check(what, got, q, k, v, planted=None, **kw):
+    """Hold the bf16 tensor-core K4 per element to ``rounded_p_limit``
+    (the plain version run in float32; the kernel rounds P to bf16 before
+    PV) and check that ``planted`` (the kernel's output for the same
+    inputs with a planted fault) reads above it.  Returns the largest
+    share of the limit used, and the planted output's."""
+    from repro_torch.kernels.flash_attention.ref import rounded_p_limit
+    want, lim = rounded_p_limit(q, k, v, atol=F32_TOL, **kw)
+    share = ((got.float() - want).abs() / lim).flatten()
+    i = int(share.argmax())
+    if float(share[i]) > 1.0:
+        fail(f"{what}: the bf16 kernel differs from the plain version in "
+             f"float32 by {float((got.float() - want).abs().flatten()[i])} "
+             f"where the limit is {float(lim.flatten()[i])}")
+    out = {"limit_share": float(share[i]),
+           "vs_f32_max_abs": float((got.float() - want).abs().max())}
+    if planted is not None:
+        ps = float(((planted.float() - want).abs() / lim).max())
+        if ps <= 1.0:
+            fail(f"{what}: a planted fault reads {ps} of the limit: the "
+                 f"check cannot see it")
+        out["planted_share"] = ps
+    return out
+
+
+def sdpa_fn(q, k, v, **kw):
+    """PyTorch's SDPA on the port's [B, S, H, D] operands (the yardstick;
+    the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+
+
+def fa_cases(q, k, v, causal=True):
+    """K4 at one shape: the kernel, its plain version, SDPA and (with
+    ``--before``) the parent's kernel, for ``time_turns``.  Prefill's q,
+    k and v are written by the projection just before, so they are not
+    rotated."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    cases = {"ms": (lambda _: FA.flash_attention(q, k, v, causal=causal),
+                    {}),
+             "plain_ms": (lambda _: FA.flash_attention(
+                 q, k, v, causal=causal, impl="ref"), {}),
+             "sdpa_ms": (lambda _: sdpa_fn(
+                 q, k, v, is_causal=causal,
+                 enable_gqa=k.shape[2] != q.shape[2]), {})}
+    if "flash_attention" in BEFORE:
+        out = torch.empty_like(q)
+        cases["before_ms"] = (lambda _: BEFORE["flash_attention"](
+            q, k, v, out, causal), {})
+    return cases
+
+
+def da_cases(q, ks, vs, vl):
+    """K3 over the layer slices ``ks`` / ``vs`` of a decode cache, read in
+    turn as ``step_fn`` reads them (cold: together they exceed L2)."""
+    from repro_torch.kernels.decode_attention import ops as DA
+    rot = dict(args=list(zip(ks, vs)))
+    s = ks[0].shape[1]
+    mask = (torch.arange(s, device=q.device)[None, :] < vl[:, None])[
+        :, None, None, :]
+    cases = {"ms": (lambda a: DA.decode_attention(q, a[0], a[1], vl), rot),
+             "plain_ms": (lambda a: DA.decode_attention(q, a[0], a[1], vl,
+                                                        impl="ref"), rot),
+             "sdpa_ms": (lambda a: sdpa_fn(
+                 q, a[0], a[1], attn_mask=mask,
+                 enable_gqa=ks[0].shape[2] != q.shape[2]), rot)}
+    if "decode_attention" in BEFORE:
+        out = torch.empty_like(q)
+        cases["before_ms"] = (lambda a: BEFORE["decode_attention"](
+            q, a[0], a[1], vl, out), rot)
+    return cases
+
+
+def fa_bound(q, k):
+    b, s, h, d = q.shape
+    return bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * d * h * b * s * (s + 1) / 2, BF16_FLOPS)
+
+
+def da_bound(q, hkv, vl):
+    keys, d = int(vl.sum()), q.shape[-1]
+    return bound_ms(2 * (2 * q.numel() + 2 * keys * hkv * d)
+                    + 4 * q.shape[0], 4 * d * q.shape[2] * keys, BF16_FLOPS)
+
+
 def phase_attn_kernels(dev):
     """K4 and K3 against their plain versions on the card: at the main
-    path's full-size shapes in bf16 (the 16-prompt prefill; one layer of
-    the 256-lane decode cache, read in place) and at small shapes in
-    float32; CUDA-event times of kernel, plain version and PyTorch's
-    ``scaled_dot_product_attention`` (the yardstick, unused by the port)."""
-    import torch.nn.functional as F
+    path's full-size shapes in bf16 (the 16-prompt prefill; the 30 layer
+    slices of the 256-lane decode cache, read in place) and at small
+    shapes in float32; the bf16 K4 held to ``rounded_p_limit`` with a
+    planted fault (the diagonal one position late) above it.  Times in
+    turns beside PyTorch's SDPA (the yardstick, unused by the port) and,
+    with ``--before``, the parent's kernels."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as DA
     from repro_torch.kernels.flash_attention import ops as FA
@@ -674,54 +960,71 @@ def phase_attn_kernels(dev):
     gen = torch.Generator(dev).manual_seed(11)
     rnd = lambda *shape, dt: torch.randn(*shape, generator=gen, device=dev,
                                          dtype=torch.float32).to(dt)
-    bf = torch.bfloat16
-    errs = {}
-    # K4 at the prefill shape, bf16; small float32 cases with the knobs
+    bf, f32 = torch.bfloat16, torch.float32
+    res, checks = {}, {}
+    # K4 at the prefill shape, bf16 (tensor cores), with a planted fault
     q, k, v = rnd(b, s, h, d, dt=bf), rnd(b, s, hkv, d, dt=bf), \
         rnd(b, s, hkv, d, dt=bf)
-    bf_err = {"flash_attention": bf16_check(
-        "flash_attention", FA.flash_attention(q, k, v),
-        FA.flash_attention(q, k, v, impl="ref"),
-        FA.flash_attention(q.float(), k.float(), v.float(), impl="ref"))}
-    errs["flash_attention"] = bf_err["flash_attention"]["bf16"]
-    f32 = []
+    got = FA.flash_attention(q, k, v)
+    checks["flash_attention_bf16"] = rounded_check(
+        "flash_attention_bf16", got, q, k, v,
+        planted=FA.flash_attention(q, k, v, q_offset=1))
+    err_bf = max_diff(got, FA.flash_attention(q, k, v, impl="ref"))
+    # one q against ten new k / v pairs, all alive: the host's cache of TMA
+    # maps finds q's while k's and v's are encoded into the oldest slots
+    kvs = [(rnd(2, 70, hkv, d, dt=bf), rnd(2, 70, hkv, d, dt=bf))
+           for _ in range(10)]
+    qm = rnd(2, 70, h, d, dt=bf)
+    checks["flash_attention_bf16"]["map_cache_share"] = max(
+        rounded_check("flash_attention_bf16 map cache",
+                      FA.flash_attention(qm, km, vm), qm, km, vm)[
+                          "limit_share"] for km, vm in kvs)
+    del kvs, qm
+    tm = time_turns(fa_cases(q, k, v))
+    res["flash_attention_bf16"] = dict(
+        tm, max_abs_err=err_bf, bound=fa_bound(q, k), shape=[b, s, h, d])
+    HOST["flash_attention_bf16"] = host_us(
+        lambda _: FA.flash_attention(q, k, v))
+    # float32 (FMA kernel): small cases with the knobs, times at this shape
+    f32e = []
     for (bb, sq, sk, off, cap, causal) in ((2, 37, 37, 0, 0.0, True),
                                            (2, 9, 30, 21, 4.0, True),
                                            (1, 40, 50, 0, 0.0, False)):
-        qs, ks, vs = rnd(bb, sq, h, d, dt=torch.float32), \
-            rnd(bb, sk, hkv, d, dt=torch.float32), \
-            rnd(bb, sk, hkv, d, dt=torch.float32)
+        qs, ks, vs = rnd(bb, sq, h, d, dt=f32), rnd(bb, sk, hkv, d, dt=f32), \
+            rnd(bb, sk, hkv, d, dt=f32)
         kw = dict(causal=causal, q_offset=off, logits_soft_cap=cap)
-        f32.append(max_diff(FA.flash_attention(qs, ks, vs, **kw),
-                            FA.flash_attention(qs, ks, vs, impl="ref", **kw)))
-    if max(f32) > F32_TOL:
+        f32e.append(max_diff(FA.flash_attention(qs, ks, vs, **kw),
+                             FA.flash_attention(qs, ks, vs, impl="ref",
+                                                **kw)))
+    if max(f32e) > F32_TOL:
         fail(f"flash_attention differs from its plain version in float32 "
-             f"by {max(f32)} (> {F32_TOL})")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fa_times = (
-        cuda_time(lambda _: FA.flash_attention(q, k, v)),
-        cuda_time(lambda _: FA.flash_attention(q, k, v, impl="ref")),
-        cuda_time(lambda _: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)))
-    fa_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    fa_flops = 4 * d * h * b * s * (s + 1) / 2       # causal QK^T and PV
-    # K3 on one layer of the decode cache of 16 roots x 16 lanes
+             f"by {max(f32e)} (> {F32_TOL})")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    cases = fa_cases(qf, kf, vf)
+    cases.pop("before_ms", None)
+    tm = time_turns(cases)
+    res["flash_attention"] = dict(
+        tm, max_abs_err=max(f32e), shape=[b, s, h, d],
+        bound=bound_ms(4 * (2 * qf.numel() + 2 * kf.numel()),
+                       4 * d * h * b * s * (s + 1) / 2, F32_FLOPS))
+    HOST["flash_attention"] = host_us(
+        lambda _: FA.flash_attention(qf, kf, vf))
+    del q, k, v, qf, kf, vf, got
+    # K3 on the decode cache of 16 roots x 16 lanes, one layer checked,
+    # all 30 layer slices timed in turn
     n = b * lm["lanes"]
     qd = rnd(n, 1, h, d, dt=bf)
     kc, vc = rnd(n, nl, s, hkv, d, dt=bf), rnd(n, nl, s, hkv, d, dt=bf)
     vl = torch.randint(lm["prompt_min"] + 1, s + 1, (n,), device=dev,
                        generator=gen).to(torch.int32)
-    layer = nl // 2
-    ks_, vs_ = kc[:, layer], vc[:, layer]
-    bf_err["decode_attention"] = bf16_check(
+    ks_, vs_ = kc[:, nl // 2], vc[:, nl // 2]
+    checks["decode_attention"] = bf16_check(
         "decode_attention", DA.decode_attention(qd, ks_, vs_, vl),
         DA.decode_attention(qd, ks_, vs_, vl, impl="ref"),
         DA.decode_attention(qd.float(), ks_.float(), vs_.float(), vl,
                             impl="ref"))
-    errs["decode_attention"] = bf_err["decode_attention"]["bf16"]
-    qs, kcs, vcs = rnd(5, 1, h, d, dt=torch.float32), \
-        rnd(5, 2, 40, hkv, d, dt=torch.float32), \
-        rnd(5, 2, 40, hkv, d, dt=torch.float32)
+    qs, kcs, vcs = rnd(5, 1, h, d, dt=f32), rnd(5, 2, 40, hkv, d, dt=f32), \
+        rnd(5, 2, 40, hkv, d, dt=f32)
     vls = torch.tensor([0, 1, 17, 39, 40], dtype=torch.int32, device=dev)
     f32d = max_diff(DA.decode_attention(qs, kcs[:, 1], vcs[:, 1], vls),
                     DA.decode_attention(qs, kcs[:, 1], vcs[:, 1], vls,
@@ -729,34 +1032,56 @@ def phase_attn_kernels(dev):
     if f32d > F32_TOL:
         fail(f"decode_attention differs from its plain version in float32 "
              f"by {f32d} (> {F32_TOL})")
-    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None,
-                                                                None, :]
-    qdt, kdt, vdt = qd.transpose(1, 2), ks_.transpose(1, 2), \
-        vs_.transpose(1, 2)
-    da_times = (
-        cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl)),
-        cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl,
-                                                impl="ref")),
-        cuda_time(lambda _: F.scaled_dot_product_attention(
-            qdt, kdt, vdt, attn_mask=mask, enable_gqa=True)))
-    keys = int(vl.sum())
-    da_bytes = 2 * (2 * qd.numel() + 2 * keys * hkv * d) + 4 * n
-    da_flops = 4 * d * h * keys
-    res = {"flash_attention": (errs["flash_attention"], *fa_times[:2],
-                               bound_ms(fa_bytes, fa_flops, BF16_FLOPS),
-                               fa_times[2]),
-           "decode_attention": (errs["decode_attention"], *da_times[:2],
-                                bound_ms(da_bytes, da_flops, BF16_FLOPS),
-                                da_times[2])}
+    tm = time_turns(da_cases(qd, [kc[:, i] for i in range(nl)],
+                             [vc[:, i] for i in range(nl)], vl))
+    res["decode_attention"] = dict(
+        tm, max_abs_err=checks["decode_attention"]["bf16"], f32_err=f32d,
+        bound=da_bound(qd, hkv, vl), shape=[n, s, h, d],
+        splits=DA.split_count(n * hkv, s))
+    HOST["decode_attention"] = host_us(
+        lambda _: DA.decode_attention(qd, ks_, vs_, vl))
+    del kc, vc
+    # a short batch takes the split-K route: 2 sequences of 2048 keys,
+    # 6 (sequence, kv head) blocks, over 30 cold layer slices
+    ns, ss = 2, 2048
+    qd = rnd(ns, 1, h, d, dt=bf)
+    kc, vc = rnd(ns, nl, ss, hkv, d, dt=bf), rnd(ns, nl, ss, hkv, d, dt=bf)
+    vl = torch.tensor([ss, ss - 301], dtype=torch.int32, device=dev)
+    ks_, vs_ = kc[:, nl // 2], vc[:, nl // 2]
+    checks["decode_attention_split"] = bf16_check(
+        "decode_attention split-K", DA.decode_attention(qd, ks_, vs_, vl),
+        DA.decode_attention(qd, ks_, vs_, vl, impl="ref"),
+        DA.decode_attention(qd.float(), ks_.float(), vs_.float(), vl,
+                            impl="ref"))
+    tm = time_turns(da_cases(qd, [kc[:, i] for i in range(nl)],
+                             [vc[:, i] for i in range(nl)], vl))
+    res["decode_attention"]["short_batch"] = dict(
+        tm, max_abs_err=checks["decode_attention_split"]["bf16"],
+        bound=da_bound(qd, hkv, vl), shape=[ns, ss, h, d],
+        splits=DA.split_count(ns * hkv, ss))
     del kc, vc
     say("attn " + " ".join(
-        f"{k}:bf16_err={v[0]},vs_f32_plain={bf_err[k]['f32']}"
-        f"({100 * bf_err[k]['f32_limit_share']:.1f}% of limit),"
-        f"f32_err={e},ms={v[1]:.4f},plain_ms={v[2]:.4f},"
-        f"bound_ms={v[3][0]:.4f},sdpa_ms={v[4]:.4f}"
-        for (k, v), e in zip(res.items(), (max(f32), f32d)))
-        + f" (prefill [{b}, {s}], decode {n} x {s} keys, bf16)")
-    return res, bf_err
+        f"{k}:err={v['max_abs_err']},ms={v['ms']:.5f},"
+        f"plain_ms={v['plain_ms']:.5f},bound_ms={v['bound'][0]:.5f},"
+        f"sdpa_ms={v['sdpa_ms']:.5f}"
+        + (f",before_ms={v['before_ms']:.5f}" if "before_ms" in v else "")
+        + f",host_us={HOST[k]:.1f}" for k, v in res.items())
+        + "; K4 bf16 "
+        f"{100 * checks['flash_attention_bf16']['limit_share']:.1f}% of its "
+        f"limit (planted fault "
+        f"{checks['flash_attention_bf16']['planted_share']:.1f}x); K3 bf16 "
+        f"{100 * checks['decode_attention']['f32_limit_share']:.1f}% "
+        f"(prefill [{b}, {s}], decode {n} x {s} keys over {nl} layers)")
+    sb = res["decode_attention"]["short_batch"]
+    say(f"attn decode_attention short batch [{ns} x {ss} keys, "
+        f"{sb['splits']} splits]: ms={sb['ms']:.5f},"
+        f"plain_ms={sb['plain_ms']:.5f},bound_ms={sb['bound'][0]:.5f},"
+        f"sdpa_ms={sb['sdpa_ms']:.5f}"
+        + (f",before_ms={sb['before_ms']:.5f}" if "before_ms" in sb else "")
+        + f"; K4 bf16 map cache "
+        f"{100 * checks['flash_attention_bf16']['map_cache_share']:.1f}% of "
+        f"its limit")
+    return res, checks
 
 
 def phase_lm_small(dev):
@@ -859,7 +1184,7 @@ def phase_lm_full(dev):
     counts = all_launches()                # read just after it
     peak = torch.cuda.max_memory_allocated()
     ticks = -(-lm["budget"] // lm["lanes"]) + 3
-    want = {"flash_attention": n_new * cfg.n_layers,
+    want = {"flash_attention_bf16": n_new * cfg.n_layers,
             "decode_attention": n_new * ticks * lm["rollout_len"]
             * cfg.n_layers,
             "bes": n_new * ticks}
@@ -1086,27 +1411,33 @@ def phase_rec_kernels(dev):
         chk = rec_check(f"wkv6 {tag}", WK.wkv6(*a5),
                         WK.wkv6(*a5, impl="ref"),
                         WK.wkv6(*c5(lambda x: x.float()), impl="ref"), n5)
-        ms = cuda_time(lambda _: WK.wkv6(*a5))
-        pms = cuda_time(lambda _: WK.wkv6(*a5, impl="ref"), reps=3)
+        tm = time_turns({"ms": (lambda _: WK.wkv6(*a5), {}),
+                         "plain_ms": (lambda _: WK.wkv6(*a5, impl="ref"),
+                                      dict(reps=3))})
+        if tag == REC_TIMED:
+            HOST["wkv6"] = host_us(lambda _: WK.wkv6(*a5))
         # r, k, v in and y out (bf16), w in (f32), u, state in and out
         nb = 2 * 4 * a5[0].numel() + 4 * a5[3].numel() + 2 * a5[4].numel() \
             + 2 * 4 * a5[5].numel()
         # per step and head: y = r^T S (2 N^2), S <- S w + k v^T (3 N^2),
         # and the bonus v_i * sum_j r_j u_j k_j (5 N)
         fl = 5.0 * b * t * h5 * n5 * (n5 + 1)
-        res["wkv6"][tag] = dict(chk, ms=ms, plain_ms=pms,
-                                bound=bound_ms(nb, fl), shape=[b, t, h5, n5])
+        res["wkv6"][tag] = dict(chk, **tm, bound=bound_ms(nb, fl),
+                                shape=[b, t, h5, n5])
         a6 = rec_inputs_ssd(b, t, h6, p6, n6, bf, dev, gen)
         c6 = lambda c: (c(a6[0]), a6[1], a6[2], c(a6[3]), c(a6[4]), a6[5],
                         a6[6])
         chk = rec_check(f"ssd {tag}", SS.ssd(*a6), SS.ssd(*a6, impl="ref"),
                         SS.ssd(*c6(lambda x: x.float()), impl="ref"), n6 + 1)
-        ms = cuda_time(lambda _: SS.ssd(*a6))
-        pms = cuda_time(lambda _: SS.ssd(*a6, impl="ref"), reps=3)
+        tm = time_turns({"ms": (lambda _: SS.ssd(*a6), {}),
+                         "plain_ms": (lambda _: SS.ssd(*a6, impl="ref"),
+                                      dict(reps=3))})
+        if tag == REC_TIMED:
+            HOST["ssd"] = host_us(lambda _: SS.ssd(*a6))
         # x in and y out, B and C in (bf16), dt in, state in and out
         nb = 2 * 2 * a6[0].numel() + 2 * 2 * a6[3].numel() \
             + 4 * a6[1].numel() + 2 * 4 * a6[6].numel()
-        res["ssd"][tag] = dict(chk, ms=ms, plain_ms=pms,
+        res["ssd"][tag] = dict(chk, **tm,
                                bound=bound_ms(nb, 5.0 * b * t * h6 * p6
                                               * n6), shape=[b, t, h6, p6, n6])
         del a5, a6
@@ -1128,27 +1459,19 @@ def phase_rec_kernels(dev):
              f"float32 by {f32_err} (> {F32_TOL})")
     # K4 and K3 at zamba2's shared attention (H = Hkv = 32, D = 128),
     # beside PyTorch's SDPA on the same inputs
-    import torch.nn.functional as F
     h, hkv, d = zb.n_heads, zb.kv_heads, zb.head_dim
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
     attn = {}
     for tag, (b, s) in (("prefill", shapes["prefill"]),
                         ("mcts", shapes["mcts"])):
         q, k, v = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
-        chk = bf16_check(f"flash_attention zamba2 {tag}",
-                         FA.flash_attention(q, k, v),
-                         FA.flash_attention(q, k, v, impl="ref"),
-                         FA.flash_attention(q.float(), k.float(), v.float(),
-                                            impl="ref"))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        attn[f"flash_attention/{tag}"] = dict(
-            chk, ms=cuda_time(lambda _: FA.flash_attention(q, k, v)),
-            plain_ms=cuda_time(lambda _: FA.flash_attention(q, k, v,
-                                                            impl="ref")),
-            sdpa_ms=cuda_time(lambda _: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)),
-            bound=bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                           4 * d * h * b * s * (s + 1) / 2, BF16_FLOPS),
+        chk = rounded_check(f"flash_attention_bf16 zamba2 {tag}",
+                            FA.flash_attention(q, k, v), q, k, v,
+                            planted=FA.flash_attention(q, k, v, q_offset=1))
+        attn[f"flash_attention_bf16/{tag}"] = dict(
+            chk, **time_turns(fa_cases(q, k, v)), bound=fa_bound(q, k),
+            max_abs_err=max_diff(FA.flash_attention(q, k, v),
+                                 FA.flash_attention(q, k, v, impl="ref")),
             shape=[b, s, h, d])
     b, s = REC_GREEDY["max_batch"], REC_GREEDY["max_seq"]
     n_apps = zb.n_layers // zb.shared_attn_every
@@ -1163,31 +1486,24 @@ def phase_rec_kernels(dev):
                      DA.decode_attention(qd, ks_, vs_, vl, impl="ref"),
                      DA.decode_attention(qd.float(), ks_.float(),
                                          vs_.float(), vl, impl="ref"))
-    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None,
-                                                                None, :]
-    qdt, kdt, vdt = qd.transpose(1, 2), ks_.transpose(1, 2), \
-        vs_.transpose(1, 2)
-    keys = int(vl.sum())
     attn["decode_attention/decode"] = dict(
-        chk, ms=cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl)),
-        plain_ms=cuda_time(lambda _: DA.decode_attention(qd, ks_, vs_, vl,
-                                                         impl="ref")),
-        sdpa_ms=cuda_time(lambda _: F.scaled_dot_product_attention(
-            qdt, kdt, vdt, attn_mask=mask)),
-        bound=bound_ms(2 * (2 * qd.numel() + 2 * keys * hkv * d) + 4 * b,
-                       4 * d * h * keys, BF16_FLOPS),
-        shape=[b, s, h, d])
+        chk, **time_turns(da_cases(qd, list(kc), list(vc), vl)),
+        bound=da_bound(qd, hkv, vl), shape=[b, s, h, d],
+        splits=DA.split_count(b * hkv, s))
     del kc, vc
     say("rec-kernels " + " ".join(
         f"{k}/{tag}:y_err={v['bf16']},vs_f32={v['f32']}"
         f"({100 * v['f32_limit_share']:.1f}%),state_err={v['state']},"
-        f"ms={v['ms']:.4f},plain_ms={v['plain_ms']:.4f},"
-        f"bound_ms={v['bound'][0]:.4f}"
+        f"ms={v['ms']:.5f},plain_ms={v['plain_ms']:.5f},"
+        f"bound_ms={v['bound'][0]:.5f}"
         for k in res for tag, v in res[k].items())
         + f" f32_err={f32_err}; zamba2 attention "
-        + " ".join(f"{k}:vs_f32={v['f32']}({100 * v['f32_limit_share']:.1f}"
-                   f"%),ms={v['ms']:.4f},plain_ms={v['plain_ms']:.4f},"
-                   f"bound_ms={v['bound'][0]:.4f},sdpa_ms={v['sdpa_ms']:.4f}"
+        + " ".join(f"{k}:limit_share="
+                   f"{v.get('limit_share', v.get('f32_limit_share'))},"
+                   f"ms={v['ms']:.5f},plain_ms={v['plain_ms']:.5f},"
+                   f"bound_ms={v['bound'][0]:.5f},sdpa_ms={v['sdpa_ms']:.5f}"
+                   + (f",before_ms={v['before_ms']:.5f}"
+                      if "before_ms" in v else "")
                    for k, v in attn.items()))
     return res, attn, f32_err
 
@@ -1228,7 +1544,7 @@ def rec_expected(cfg, eng, mode) -> dict:
     if mode == "greedy":
         want = {scan: cfg.n_layers * (st.admissions + st.steps)}
         if zamba:
-            want.update(flash_attention=n_apps * st.admissions,
+            want.update(flash_attention_bf16=n_apps * st.admissions,
                         decode_attention=n_apps * st.steps)
         return want
     ticks = rec_mcts_ticks(REC_MCTS)
@@ -1237,7 +1553,7 @@ def rec_expected(cfg, eng, mode) -> dict:
     fwd = st.steps * (1 + ticks * REC_MCTS["rollout_len"])
     want = {scan: cfg.n_layers * fwd, "bes": st.steps * ticks}
     if zamba:
-        want.update(flash_attention=n_apps * fwd, decode_attention=0)
+        want.update(flash_attention_bf16=n_apps * fwd, decode_attention=0)
     return want
 
 
@@ -1384,6 +1700,8 @@ SOURCES = {
                            "src/repro/kernels/uct_select/kernel.py:133"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:74"),
+    "flash_attention_bf16": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
     "wkv6": ("src/repro_torch/csrc/rwkv6_scan.cu",
@@ -1395,6 +1713,14 @@ REC_TIMED = "prefill"   # the shape whose times the kernels line carries
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--before", metavar="DIR", help="a directory holding "
+                    "an earlier flash_attention.cu and decode_attention.cu "
+                    "(C entry points of the same names and arguments as "
+                    "the parent commit's): built with the parent's flags "
+                    "and timed in turns beside the kernels")
+    before = ap.parse_args().before
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1405,13 +1731,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card, name = phase_env()
-    build_s, ptxas = phase_build()
+    build_s, ptxas, sass = phase_build(before)
     kern = phase_kernels(dev)
     attn, attn_bf16 = phase_attn_kernels(dev)
     rec_kern, rec_attn, rec_f32 = phase_rec_kernels(dev)
+    torch.cuda.synchronize()
+    reset_launches()        # the small main paths (float32 smoke models)
     small = phase_small(dev)
     lm_small = phase_lm_small(dev)
     rec_small = phase_rec_small(dev)
+    torch.cuda.synchronize()
+    small_counts = all_launches()          # read just after them
+    if small_counts["flash_attention"] == 0:
+        fail("the float32 flash_attention kernel was not launched on the "
+             "float32 smoke models' paths")
     runs, counts = phase_full(dev)
     lm_run, lm_params = phase_lm_full(dev)
     lm_prof = phase_lm_profile(dev, lm_params)
@@ -1419,8 +1752,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
     prof = phase_profile(dev)
-    # launches on the main paths: P-game, LM decode, the engines
-    paths = (counts, lm_run["launches"], rec_counts)
+    # launches on the main paths: the float32 smoke runs, P-game, LM
+    # decode, the engines
+    paths = (small_counts, counts, lm_run["launches"], rec_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in SOURCES}
     idle = [k for k, v in total.items() if v == 0]
     if idle:
@@ -1428,9 +1762,12 @@ def main() -> int:
     kernels = []
     for k, (src, repl) in SOURCES.items():
         if k in attn:
-            err, ms, pms, (bms, by), lib = attn[k]
-            err = max([err] + [v["bf16"] for t, v in rec_attn.items()
-                               if t.startswith(k)])
+            a = attn[k]
+            err = max([a["max_abs_err"]] + [
+                v.get("max_abs_err", v.get("bf16"))
+                for t, v in rec_attn.items() if t.split("/")[0] == k])
+            ms, pms, (bms, by), lib = a["ms"], a["plain_ms"], a["bound"], \
+                a["sdpa_ms"]
         elif k in rec_kern:
             t = rec_kern[k][REC_TIMED]
             err = max(v["bf16"] for v in rec_kern[k].values())
@@ -1444,8 +1781,11 @@ def main() -> int:
                         "replaces": repl, "launches": total[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lib})
+    say("host-us " + " ".join(f"{k}={v:.1f}" for k, v in HOST.items())
+        + " (host microseconds per wrapper call, no synchronise)")
     detail = {"card": card, "device": name, "build_s": build_s,
-              "ptxas": ptxas, "kernels": kern, "attn_kernels": attn,
+              "ptxas": ptxas, "sass": sass, "kernels": kern,
+              "attn_kernels": attn,
               "attn_bf16_checks": attn_bf16,
               "small_float_diff": small, "lm_small_tokens": lm_small,
               "full_runs": runs, "launch_counts": counts, "profile": prof,
@@ -1454,6 +1794,7 @@ def main() -> int:
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,
               "rec_full": rec_runs, "rec_launches": rec_counts,
               "rec_profile": rec_prof, "launches_total": total,
+              "launches_small": small_counts, "host_us": HOST,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     write_out("chip_smoke.json", [json.dumps(detail, indent=1)])

@@ -1,53 +1,61 @@
 // Blocked causal / non-causal flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention/kernel.py:
-//   flash_attention_bhsd (_fa_kernel)  -> fa_kernel
+//   flash_attention_bhsd (_fa_kernel)  -> fa_wgmma_kernel (bfloat16),
+//                                         fa_kernel (float32)
 // and implements what that path drops: q_offset and logits_soft_cap.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, Hkv, D], out [B, Sq, H, D], row-major
 // (the public layout of the port's wrapper, read in place: no transpose or
 // padding copy).  GQA: head h reads kv head h / (H / Hkv).
 //
-// What bounds it on an H100: at the prefill shapes of the main path
-// (smollm-135m, 16 prompts x 276 positions, 9 heads of 64) a launch does
-// ~1.4 GFLOP of causal QK^T and PV over ~14 MB of q/k/v/out in bf16, which
-// would take ~1.4 us at the bf16 tensor-core peak and ~4 us at the memory
-// rate: bytes bound it.  This first kernel runs the products on the CUDA
-// cores in float32 (FMA loops, no mma), so its float32 instruction rate
-// bounds it, far above that bound.
-// What the design does: the TPU's sequential kv grid dimension becomes a
-// loop inside the block; one block per (query tile of BQ rows, b * H + h);
-// K and V tiles of BK keys are staged in shared memory as float32 (K rows
-// padded by one word, so the 32 lanes reading 32 keys hit 32 banks); each
-// warp owns BQ / 8 query rows, a lane scores one key of the tile and holds
-// D / 32 output columns; the online softmax (running max m, sum l) lives in
-// registers; tiles above the causal diagonal are never loaded.  Float32
-// accumulation, output in q's dtype, l floored at 1e-30 (rows with no key
-// give 0).
+// What bounds it on an H100: bytes.  At the main path's prefill shapes
+// (smollm-135m, 16 prompts x 276 positions, 9 heads of 64; zamba2-1.2b
+// [16, 166] and [1, 384], 32 heads of 128) a launch does 0.1-3 GFLOP of
+// causal QK^T and PV over 1-23 MB of bf16 q/k/v/out: ~0.1-3 us at the bf16
+// tensor-core peak against ~0.4-7 us at the memory rate.
+//
+// bfloat16, fa_wgmma_kernel (D in {64, 80, 128}): one CTA of one warpgroup
+// (128 threads) per (64-row query tile, b * H + h).  One thread issues
+// every copy by TMA (cp.async.bulk.tensor on a 4-D tensor map of the
+// [B, S, H, D] tensor, completing on an mbarrier): the Q tile once, K and
+// V tiles of 64 keys through a ring in shared memory (K of tile t + 1 and V
+// of tile t in flight while tile t's S = Q K^T and softmax run).  Tiles
+// land in the 128-byte swizzle that wgmma reads: 64-column atoms of rows x
+// 128 B, 16-byte chunk c of row r at chunk c ^ (r % 8); D = 80 takes two
+// atoms, the columns past D and the rows past the end arriving as zeros.
+// S = Q K^T is wgmma m64n64k16 with both operands K-major in shared memory,
+// float32 accumulators; the online softmax (scale, soft cap, masks, row max
+// and sum over the quad of lanes that holds a row) runs on the accumulator
+// fragments in registers; P is rounded to bf16 in registers, as the Pallas
+// kernel rounds it to V's dtype, and O += P V is wgmma m64nNk16 (N = 64 or
+// 128) with A from registers and V [keys, D] as the MN-major B operand; l is
+// summed from the float32 P.  seq_k_valid and the causal diagonal are masked
+// only in the tiles that straddle them; tiles above the diagonal (shifted
+// by q_offset) are never loaded.  A row with no key writes 0.  The tensor
+// maps are made on the host (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint) and kept for the last few pointers and shapes.
+//
+// float32, fa_kernel (any D <= 128; the smoke models, whose card == CPU
+// token streams go through it: wgmma has no float32 mode but TF32): the
+// products on the CUDA cores as float32 FMA loops, one block per (32-row
+// query tile, b * H + h), K / V tiles of 32 keys staged as float32 in
+// shared memory, a lane per key, online softmax in registers.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched
+                     // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 32;       // query rows per block
-constexpr int BK = 32;       // keys per tile (one per lane)
+constexpr int BQ = 32;       // fa_kernel: query rows per block
+constexpr int BK = 32;       // fa_kernel: keys per tile (one per lane)
 constexpr int WARPS = 8;
 constexpr int ROWS = BQ / WARPS;
 constexpr int MAX_D = 128;
 constexpr int COLS = MAX_D / 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
@@ -58,10 +66,454 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int TM = 64;          // query rows per CTA (one warpgroup)
+constexpr int TN = 64;          // keys per tile
+// K / V tiles in the ring: K of tile t + 1 is copied while tile t is
+// computed, V of tile t while its S = Q K^T and softmax run.  One V stage
+// leaves room for three CTAs per SM at D = 128 (64 KB of shared memory and
+// ~21 K registers each).
+constexpr int KS = 2;
+constexpr int VS = 1;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// Wait for the phase of parity `parity` to complete.  A copy that never
+// lands traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (spin > (1LL << 24)) __trap();
+  }
+}
+
+// One TMA copy of a box of a 4-D tensor map, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The rows [row, row + R) of head `hd` of sequence `b` as DP / 64 atoms of
+// R rows x 64 columns, each one TMA box; columns past D and rows past the
+// tensor's end arrive as zeros.
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int hd, int row,
+                                         int b) {
+#pragma unroll
+  for (int a = 0; a < DP / 64; ++a)
+    tma_load(dst + a * R * 128, map, bar, a * 64, hd, row, b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+struct WgmmaShape {
+  static constexpr int DP = D <= 64 ? 64 : 128;   // columns in smem
+  static constexpr int QTILE = TM * DP * 2;       // bytes of the Q tile
+  static constexpr int KTILE = TN * DP * 2;       // bytes of a K / V tile
+  static constexpr int SMEM = QTILE + (KS + VS) * KTILE + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                __nv_bfloat16* __restrict__ out, int sq, int sk, int seq_k,
+                int h, int hkv, int causal, int q_offset, float scale,
+                float cap) {
+  using S = WgmmaShape<D>;
+  constexpr int DP = S::DP, QTILE = S::QTILE, KTILE = S::KTILE;
+  constexpr int NO = DP / 2;               // O accumulators per thread
+  constexpr int NSC = TN / 2;              // S accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + KS + VS];   // Q, K, V stages
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;   // atoms 1024-B aligned
+  const uint32_t s_k = s_q + QTILE, s_v = s_k + KS * KTILE;
+  const uint32_t bar_q = (uint32_t)__cvta_generic_to_shared(bars);
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * KS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * TM;
+  const int bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int kvh = hh / (h / hkv);
+
+  // keys this tile can see: below seq_k_valid and, causal, at or below
+  // the last query row's position
+  const int k_valid = seq_k < sk ? seq_k : sk;
+  int k_end = k_valid;
+  if (causal) {
+    const long long last = (long long)min(q0 + TM, sq) - 1 + q_offset;
+    if (last + 1 < k_end) k_end = (int)(last + 1 > 0 ? last + 1 : 0);
+  }
+  const int n_tiles = (k_end + TN - 1) / TN;
+
+  // one thread issues every copy: Q, then tile t of K into stage t % KS
+  // and of V into stage t % VS, each on its stage's barrier
+  auto issue_k = [&](int t) {
+    const uint32_t bar = bar_k + (t % KS) * 8;
+    mbar_expect(bar, KTILE);
+    tma_tile<DP, TN>(s_k + (t % KS) * KTILE, &map_k, bar, kvh, t * TN, b);
+  };
+  auto issue_v = [&](int t) {
+    const uint32_t bar = bar_v + (t % VS) * 8;
+    mbar_expect(bar, KTILE);
+    tma_tile<DP, TN>(s_v + (t % VS) * KTILE, &map_v, bar, kvh, t * TN, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + KS + VS; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar_q, QTILE);
+    tma_tile<DP, TM>(s_q, &map_q, bar_q, hh, q0, b);
+    for (int t = 0; t < KS - 1 && t < n_tiles; ++t) issue_k(t);
+    for (int t = 0; t < VS - 1 && t < n_tiles; ++t) issue_v(t);
+  }
+  __syncthreads();
+
+  const int row_a = warp * 16 + (lane >> 2);   // this thread's two rows
+  const int qi_a = q0 + row_a, qi_b = qi_a + 8;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+  const float sl2 = scale * LOG2E;
+  mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * TN;
+    const uint32_t sk_t = s_k + (t % KS) * KTILE;
+    const uint32_t sv_t = s_v + (t % VS) * KTILE;
+    if (tid == 0) {        // the stages these fill were freed at t - 1
+      if (t + KS - 1 < n_tiles) issue_k(t + KS - 1);
+      if (t + VS - 1 < n_tiles) issue_v(t + VS - 1);
+    }
+    mbar_wait(bar_k + (t % KS) * 8, (t / KS) & 1);
+
+    float s[NSC];
+#pragma unroll
+    for (int i = 0; i < NSC; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t col = (ks & 3) * 32;
+      const uint64_t dq = sw128_desc(s_q + (ks >> 2) * (TM * 128) + col, 16,
+                                     1024);
+      const uint64_t dk = sw128_desc(sk_t + (ks >> 2) * (TN * 128) + col,
+                                     16, 1024);
+      wgmma_ss_n64(s, dq, dk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // scores in the log2 domain, masked where the tile straddles a limit
+    if (cap > 0.0f) {
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) s[i] = cap * tanhf(s[i] * scale / cap);
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) s[i] *= LOG2E;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) s[i] *= sl2;
+    }
+    if (k0 + TN > k_valid || (causal && k0 + TN - 1 > q0 + q_offset)) {
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) {
+        const int kj = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const int qi = (i & 2) ? qi_b : qi_a;
+        if (kj >= k_valid || (causal && qi + q_offset < kj))
+          s[i] = -INFINITY;
+      }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NSC; ++i) {
+      if (i & 2) mx_b = fmaxf(mx_b, s[i]);
+      else mx_a = fmaxf(mx_a, s[i]);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(~0u, mx_a, o_));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(~0u, mx_b, o_));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float mu_a = mn_a == -INFINITY ? 0.0f : mn_a;   // no key yet
+    const float mu_b = mn_b == -INFINITY ? 0.0f : mn_b;
+    const float c_a = exp2f(m_a - mu_a), c_b = exp2f(m_b - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float ps_a = 0.0f, ps_b = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NSC; ++i) {
+      const float p = exp2f(s[i] - ((i & 2) ? mu_b : mu_a));
+      s[i] = p;
+      if (i & 2) ps_b += p;
+      else ps_a += p;
+    }
+    l_a = l_a * c_a + ps_a;        // from the float32 P, before rounding
+    l_b = l_b * c_b + ps_b;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? c_b : c_a;
+    uint32_t a[TN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TN / 16; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(o);
+    mbar_wait(bar_v + (t % VS) * 8, (t / VS) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TN / 16; ++kk) {
+      const uint64_t dv = sw128_desc(sv_t + kk * 16 * 128, TN * 128, 1024);
+      if constexpr (DP == 64) wgmma_rs_n64(o, a[kk], dv);
+      else wgmma_rs_n128(o, a[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    __syncthreads();   // this tile's stages may be refilled
+  }
+
+  l_a += __shfl_xor_sync(~0u, l_a, 1);
+  l_a += __shfl_xor_sync(~0u, l_a, 2);
+  l_b += __shfl_xor_sync(~0u, l_b, 1);
+  l_b += __shfl_xor_sync(~0u, l_b, 2);
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  const size_t q_ld = (size_t)h * D;
+  __nv_bfloat16* ob = out + (size_t)b * sq * q_ld + (size_t)hh * D;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + (lane & 3) * 2;
+    if (col < D) {
+      if (qi_a < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qi_a * q_ld + col) =
+            __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      if (qi_b < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qi_b * q_ld + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv_b,
+                                  o[4 * j + 3] * inv_b);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &got) != cudaSuccess
+        || got != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return (EncodeTiled)f;
+  }();
+  return fn;
+}
+
+// Writes to *out the 4-D map {D, H, S, B} (innermost first) of a
+// [B, S, H, D] bf16 tensor with boxes of 64 columns x 1 head x `rows` rows
+// x 1 sequence, 128-byte swizzle; out-of-range columns and rows read as
+// zeros.  The last few maps are kept, by pointer and shape, and handed out
+// by value: a later lookup may overwrite a slot, never a map in use.
+bool tensor_map(CUtensorMap* out, const void* base, int b, int s, int h,
+                int d, int rows) {
+  struct Entry {
+    const void* base;
+    int key[5];
+    CUtensorMap map;
+  };
+  static Entry cache[8];
+  static int next = 0;
+  const int key[5] = {b, s, h, d, rows};
+  for (const Entry& e : cache)
+    if (e.base == base && e.key[0] == b && e.key[1] == s && e.key[2] == h
+        && e.key[3] == d && e.key[4] == rows) {
+      *out = e.map;
+      return true;
+    }
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                 (cuuint64_t)s * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  if (enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims,
+          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[next];
+  e.map = *out;
+  e.base = base;
+  for (int i = 0; i < 5; ++i) e.key[i] = key[i];
+  next = (next + 1) % 8;
+  return true;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int b, int sq, int sk, int seq_k, int h, int hkv, int causal,
+                 int q_offset, float scale, float cap, cudaStream_t stream) {
+  constexpr int SMEM = WgmmaShape<D>::SMEM;
+  static cudaError_t attr = cudaFuncSetAttribute(   // once per D
+      fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, b, sq, h, D, TM)
+      || !tensor_map(&mk, k, b, sk, hkv, D, TN)
+      || !tensor_map(&mv, v, b, sk, hkv, D, TN))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((sq + TM - 1) / TM, b * h);
+  fa_wgmma_kernel<D><<<grid, 128, SMEM, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, sq, sk, seq_k, h, hkv, causal,
+      q_offset, scale, cap);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMA loops on the CUDA cores
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(WARPS * 32)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int sq, int sk,
           int seq_k, int h, int hkv, int d, int causal, int q_offset,
           float scale, float cap) {
   extern __shared__ float smem[];
@@ -73,13 +525,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / h, hh = bh % h;
   const int kvh = hh / (h / hkv);
   const size_t q_row = (size_t)h * d, kv_row = (size_t)hkv * d;
-  const T* qb = q + ((size_t)b * sq) * q_row + (size_t)hh * d;
-  const T* kb = k + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
-  const T* vb = v + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
+  const float* qb = q + ((size_t)b * sq) * q_row + (size_t)hh * d;
+  const float* kb = k + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
+  const float* vb = v + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
 
   for (int e = tid; e < BQ * d; e += WARPS * 32) {
     const int r = e / d, c = e % d;
-    qs[e] = (q0 + r < sq) ? to_f(qb[(size_t)(q0 + r) * q_row + c]) : 0.0f;
+    qs[e] = (q0 + r < sq) ? qb[(size_t)(q0 + r) * q_row + c] : 0.0f;
   }
   float m[ROWS], l[ROWS], acc[ROWS][COLS];
 #pragma unroll
@@ -101,8 +553,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / d, c = e % d;
       const bool in = k0 + r < k_end;
       const size_t off = (size_t)(k0 + r) * kv_row + c;
-      ks[r * (d + 1) + c] = in ? to_f(kb[off]) : 0.0f;
-      vs[r * d + c] = in ? to_f(vb[off]) : 0.0f;
+      ks[r * (d + 1) + c] = in ? kb[off] : 0.0f;
+      vs[r * d + c] = in ? vb[off] : 0.0f;
     }
     __syncthreads();
     const int kj = k0 + lane;
@@ -137,7 +589,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
     }
   }
-  T* ob = out + ((size_t)b * sq) * q_row + (size_t)hh * d;
+  float* ob = out + ((size_t)b * sq) * q_row + (size_t)hh * d;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int qi = q0 + warp * ROWS + r;
@@ -146,45 +598,61 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < COLS; ++c) {
       const int col = lane + 32 * c;
       if (qi < sq && col < d)
-        ob[(size_t)qi * q_row + col] = from_f<T>(acc[r][c] * inv);
+        ob[(size_t)qi * q_row + col] = acc[r][c] * inv;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int sk, int seq_k, int h, int hkv, int d, int causal,
-           int q_offset, float scale, float cap, cudaStream_t stream) {
+
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
+               int sq, int sk, int seq_k, int h, int hkv, int d, int causal,
+               int q_offset, float scale, float cap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * d + (size_t)BK * (d + 1)
                                        + (size_t)BK * d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static cudaError_t attr = cudaFuncSetAttribute(   // once, for MAX_D
+      fa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * (BQ * MAX_D + BK * (MAX_D + 1) + BK * MAX_D)));
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((sq + BQ - 1) / BQ, b * h);
-  fa_kernel<T><<<grid, WARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, sk, seq_k, h, hkv,
-      d, causal, q_offset, scale, cap);
+  fa_kernel<<<grid, WARPS * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk,
+      seq_k, h, hkv, d, causal, q_offset, scale, cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success);
-// 1 (cudaErrorInvalidValue) for shapes the kernel does not take.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
+// Each returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
+// shapes the kernel does not take.  float32: D <= 128.
+extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int sk, int seq_k, int h, int hkv, int d,
                                    int causal, int q_offset, float scale,
-                                   float cap, int dtype, void* stream) {
+                                   float cap, void* stream) {
   if (d < 1 || d > MAX_D || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
+  return launch_f32(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
+                    q_offset, scale, cap, (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores: D in {64, 80, 128}; q, k, v 16-byte
+// aligned.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* out, int b, int sq,
+                                    int sk, int seq_k, int h, int hkv, int d,
+                                    int causal, int q_offset, float scale,
+                                    float cap, void* stream) {
+  if (hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (b == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                         q_offset, scale, cap, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d,
-                                 causal, q_offset, scale, cap, s);
+  switch (d) {
+#define FA_CASE(D)                                                          \
+  case D:                                                                   \
+    return launch_wgmma<D>(q, k, v, out, b, sq, sk, seq_k, h, hkv, causal,  \
+                           q_offset, scale, cap, s);
+    FA_CASE(64) FA_CASE(80) FA_CASE(128)
+#undef FA_CASE
+  }
   return (int)cudaErrorInvalidValue;
 }

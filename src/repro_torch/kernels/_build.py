@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface under ``build/repro_torch/`` at the repository
 root, at first use, and loaded with ``ctypes``.  No PyTorch header is
-included, so a build takes seconds.  Flags: ``sm_90a``, ``-O3``,
-``-fmad=false`` and no fast math — the UCT scores must round as the plain
-PyTorch version's separate tensor ops do, or argmax decisions flip on near
-ties.
+included, so a build takes seconds.  Flags: ``sm_90a``, ``-O3``, no fast
+math; ``-fmad=false`` for the sources in ``EXACT_FMA``, whose results must
+round as the plain PyTorch version's separate tensor ops do (the UCT scores,
+or argmax decisions flip on near ties; the backups and the recurrent
+states, held bit-equal).  The attention sources are built with contraction
+into FMAs: their checks allow for the order of the sums.
 
 ``build_all()`` compiles every source at once, one ``nvcc`` process per
 source.  A library is rebuilt when a source it depends on is newer.
@@ -28,11 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("uct_select", "search_wave", "flash_attention",
            "decode_attention", "rwkv6_scan", "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+EXACT_FMA = ("uct_select", "search_wave", "rwkv6_scan", "ssm_scan")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -58,10 +61,16 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
+def flags(name: str) -> List[str]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (["-fmad=false"] if name in EXACT_FMA else [])
+
+
 def _start(name: str) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp = tmp
@@ -100,11 +109,15 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes._CFuncPtr:
-    """Declare a C entry point returning a ``cudaError_t`` as int."""
-    f = getattr(lib, fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``fn`` of ``csrc/<name>.cu``, returning a
+    ``cudaError_t`` as int; declared once and cached."""
+    f = _fns.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _fns[(name, fn)] = f
     return f
 
 

@@ -12,9 +12,17 @@ kernel takes their batch and sequence strides, so ``step_fn`` hands it one
 layer's slice of the batched cache without a copy.
 
 Bound on an H100: bytes — every valid key and value is read once; see the
-source note.  Dispatch: a CPU tensor takes the plain version; a CUDA tensor
-launches the kernel (float32 or bfloat16, D <= 128, H / Hkv <= 8) and a
-failed build or launch raises.  ``launches`` counts kernel launches.
+source note.  When B * Hkv is below two blocks per SM the key axis is split
+over blocks (flash-decoding, ``split_count``) and a second small kernel
+merges the splits; the wrapper allocates their float32 scratch.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel (float32 or bfloat16, D <= 128, H / Hkv <= 8, 16-byte aligned
+operands and strides) and a shape it does not take, a failed build or a
+failed launch raises.  The kernel reads rows of a multiple of 16 bytes:
+``decode_attention`` pads other head dims with zero columns (a copy of
+the cache slice; no configuration has such a head dim).  ``launches`` counts
+calls that launch the kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +40,17 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D, MAX_GROUP = 128, 8
+SMS = 132                     # H100 SXM streaming multiprocessors
+MIN_SPLIT_KEYS = 128          # keys a split gets at least
+
+
+def split_count(ctas: int, sk: int) -> int:
+    """Key-axis splits per (sequence, kv head): enough blocks for two per
+    SM when ``ctas`` = B * Hkv falls short, each split >= MIN_SPLIT_KEYS
+    keys of the cache."""
+    if ctas >= 2 * SMS:
+        return 1
+    return max(1, min(-(-2 * SMS // ctas), sk // MIN_SPLIT_KEYS))
 
 
 def _check_cache(t, name, dtype, shape, device):
@@ -47,30 +66,50 @@ def _check_cache(t, name, dtype, shape, device):
     if t.stride(3) != 1 or t.stride(2) != shape[3]:
         raise ValueError(f"{name} needs packed head and feature dims, got "
                          f"strides {t.stride()}")
+    es = t.element_size()
+    if t.data_ptr() % 16 or (t.stride(0) * es) % 16 \
+            or (t.stride(1) * es) % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned base and batch / "
+                         f"sequence strides, got strides {t.stride()}")
 
 
-def launch(q, k, v, valid_len, out):
-    """Launch ``da_kernel`` on checked operands."""
+def launch(q, k, v, valid_len, out, scale=None):
+    """Launch ``da_kernel`` (and ``da_combine`` when the keys are split)
+    on checked operands; ``scale`` defaults to 1 / sqrt(D)."""
     b, _, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"decode_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if not 1 <= d <= MAX_D or h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention takes D <= {MAX_D} and H / Hkv "
-                         f"<= {MAX_GROUP}, got D={d}, H={h}, Hkv={hkv}")
+    if not 1 <= d <= MAX_D or (d * q.element_size()) % 16 or h % hkv \
+            or h // hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention takes D <= {MAX_D} with rows of "
+                         f"a multiple of 16 bytes and H / Hkv <= {MAX_GROUP},"
+                         f" got D={d} ({q.dtype}), H={h}, Hkv={hkv}")
     _build.check_operand(q, "q", q.dtype, (b, 1, h, d), dev)
     _check_cache(k, "k", q.dtype, (b, sk, hkv, d), dev)
     _check_cache(v, "v", q.dtype, (b, sk, hkv, d), dev)
     _build.check_operand(valid_len, "valid_len", torch.int32, (b,), dev)
     _build.check_operand(out, "out", q.dtype, (b, 1, h, d), dev)
-    fn = _build.bind(_build.load("decode_attention"), "decode_attention_fwd",
-                     [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _I, _P])
+    if q.data_ptr() % 16:
+        raise ValueError("decode_attention needs a 16-byte aligned q")
+    splits = split_count(b * hkv, sk)
+    part_ml = part_acc = None
+    if splits > 1:
+        part_ml = torch.empty(b * h * splits * 2, dtype=torch.float32,
+                              device=dev)
+        part_acc = torch.empty(b * h * splits * d, dtype=torch.float32,
+                               device=dev)
+    fn = _build.bind("decode_attention", "decode_attention_fwd",
+                     [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    valid_len.data_ptr(), out.data_ptr(), b, sk, h, hkv, d,
-                    k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                    1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+                    valid_len.data_ptr(), out.data_ptr(),
+                    part_ml.data_ptr() if splits > 1 else None,
+                    part_acc.data_ptr() if splits > 1 else None, b, sk, h,
+                    hkv, d, k.stride(0), k.stride(1), v.stride(0),
+                    v.stride(1), scale or 1.0 / math.sqrt(d), splits,
+                    _DTYPE_CODES[q.dtype],
                     torch.cuda.current_stream(dev).cuda_stream),
                  "decode_attention")
     launches["decode_attention"] += 1
@@ -82,7 +121,14 @@ def decode_attention(q, k, v, valid_len, *, impl=None):
     ``[B, 1, H, D]`` in q's dtype (zeros where ``valid_len`` is 0)."""
     if _build.resolve_impl(impl, q) == "ref":
         return R.decode_attention_ref(q, k, v, valid_len)
+    d = q.shape[-1]
+    pad = -d % (16 // q.element_size())
+    if pad:      # rows of 16-byte multiples: zero columns add to no score
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     q = q.contiguous()
+    if q.data_ptr() % 16:             # the kernel reads q in 16-byte pieces
+        q = q.clone()
     valid_len = valid_len.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    return launch(q, k, v, valid_len, out)
+    out = launch(q, k, v, valid_len, torch.empty_like(q),
+                 scale=1.0 / math.sqrt(d))
+    return out[..., :d] if pad else out

@@ -7,6 +7,10 @@ knobs the kernel implements and the Pallas path drops: ``q_offset``
 (``cap * tanh(s / cap)``) and ``seq_k_valid`` (keys at or beyond it are
 padding).  Scores and the softmax are float32; a query row with no key to
 attend gives zeros, as the kernel's ``l`` floor does.
+
+``rounded_p_limit`` is the per-element limit of a bf16 kernel that rounds
+P to bf16 before PV (the Pallas kernel and the port's tensor-core kernel
+both do), held against this plain version run in float32.
 """
 from __future__ import annotations
 
@@ -45,3 +49,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
         keep = keep.expand(sq, sk)
     out = masked_softmax_pv(s, keep, vf)                 # [B, Hkv, G, Sq, D]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+BF16_U = 2.0 ** -8   # unit roundoff of bf16 (8 significant bits)
+
+
+def rounded_p_limit(q, k, v, *, atol: float, **kw):
+    """``(want, limit)`` for a bf16 output whose P is rounded to bf16
+    before the product with V: ``want`` is this plain version on the
+    inputs in float32, and per element
+
+        limit = atol + 2^-8 |want| + 2^-8 M,   M = sum_j p_j |v_j| / l,
+
+    M being this plain version run with |v|.  Each rounded p_j carries a
+    relative error <= 2^-8, so P's rounding moves the output by at most
+    2^-8 M; rounding the output to bf16 adds 2^-8 |want|; ``atol`` covers
+    the order of the float32 sums.  ``kw`` as ``flash_attention_ref``."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_attention_ref(qf, kf, vf, **kw)
+    m = flash_attention_ref(qf, kf, vf.abs(), **kw)
+    return want, atol + BF16_U * want.abs() + BF16_U * m

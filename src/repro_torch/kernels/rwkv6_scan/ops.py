@@ -46,7 +46,7 @@ def launch(r, k, v, w, u, state, y, state_out):
     _build.check_operand(u, "u", r.dtype, (h, n), dev)
     for x, nm in ((state, "state"), (state_out, "state_out")):
         _build.check_operand(x, nm, torch.float32, (b, h, n, n), dev)
-    fn = _build.bind(_build.load("rwkv6_scan"), "wkv6_fwd",
+    fn = _build.bind("rwkv6_scan", "wkv6_fwd",
                      [_P] * 8 + [_I] * 5 + [_P])
     _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), state.data_ptr(), y.data_ptr(),

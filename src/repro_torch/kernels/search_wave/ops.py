@@ -86,13 +86,11 @@ def _outs(b, lanes, p, dev):
 def _check_launch(lanes, a, p):
     if not 1 <= lanes <= 1024:
         raise ValueError(f"search_wave kernels take 1..1024 lanes, got {lanes}")
-    lib = _build.load("search_wave")
-    fn = _build.bind(lib, "sw_smem_bytes", [_I, _I, _I])
+    fn = _build.bind("search_wave", "sw_smem_bytes", [_I, _I, _I])
     smem = fn(lanes, a, p)
     if smem > MAX_SMEM:
         raise ValueError(f"search_wave needs {smem} B of shared memory for "
                          f"lanes={lanes}, A={a}; the card offers {MAX_SMEM}")
-    return lib
 
 
 def _cfg_args(sp, lanes, b, n, a, wave_valid, dev):
@@ -133,10 +131,10 @@ def launch_se(tree: TreeArena, sp, lanes: int, wave_valid):
     place; returns ``(s_leaf, s_depth, s_path, s_dup, e_can, e_slot,
     e_new)``."""
     b, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
-    lib = _check_launch(lanes, a, sp.path_len)
+    _check_launch(lanes, a, sp.path_len)
     planes = _planes(tree, sp)
     outs = _outs(b, lanes, sp.path_len, dev)
-    fn = _build.bind(lib, "sw_se", [_P] * 16 + _CFG_ARGS)
+    fn = _build.bind("search_wave", "sw_se", [_P] * 16 + _CFG_ARGS)
     _build.check(fn(*[t.data_ptr() for t in planes + list(outs)],
                     *_cfg_args(sp, lanes, b, n, a, wave_valid, dev)), "sw_se")
     launches["se"] += 1
@@ -149,12 +147,12 @@ def launch_bes(tree: TreeArena, sp, lanes: int, wave_valid, se_leaf,
     value, the in-flight plane, prior and children in place; returns the
     select and expand outputs as ``launch_se`` does."""
     b, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
-    lib = _check_launch(lanes, a, sp.path_len)
+    _check_launch(lanes, a, sp.path_len)
     planes = _planes(tree, sp)
     _build.check_operand(se_leaf, "se_leaf", torch.int32, (b, lanes), dev)
     _build.check_operand(se_valid, "se_valid", torch.bool, (b, lanes), dev)
     outs = _outs(b, lanes, sp.path_len, dev)
-    fn = _build.bind(lib, "sw_bes", [_P] * 24 + _CFG_ARGS)
+    fn = _build.bind("search_wave", "sw_bes", [_P] * 24 + _CFG_ARGS)
     ptrs = [t.data_ptr() for t in planes + [se_leaf, se_valid] + list(pb)
             + list(outs)]
     _build.check(fn(*ptrs, *_cfg_args(sp, lanes, b, n, a, wave_valid, dev)),
@@ -168,9 +166,9 @@ def launch_b(tree: TreeArena, sp, pb) -> None:
     value, the in-flight plane and prior in place."""
     bsz, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
     lanes, p = pb[0].shape[1], sp.path_len
-    lib = _check_launch(lanes, a, p)
+    _check_launch(lanes, a, p)
     planes = _planes(tree, sp)[:4]
-    fn = _build.bind(lib, "sw_b", [_P] * 10 + [_I] * 5 + [_P])
+    fn = _build.bind("search_wave", "sw_b", [_P] * 10 + [_I] * 5 + [_P])
     _build.check(fn(*[t.data_ptr() for t in planes + list(pb)], bsz, n, a,
                     lanes, p, torch.cuda.current_stream(dev).cuda_stream),
                  "sw_b")

@@ -54,7 +54,7 @@ def launch(x, dt, A, Bm, Cm, D, state, y, state_out):
     _build.check_operand(y, "y", x.dtype, (b, t, h, p), dev)
     for z, nm in ((state, "state"), (state_out, "state_out")):
         _build.check_operand(z, nm, torch.float32, (b, h, p, n), dev)
-    fn = _build.bind(_build.load("ssm_scan"), "ssd_fwd",
+    fn = _build.bind("ssm_scan", "ssd_fwd",
                      [_P] * 9 + [_I] * 5 + [_L] * 6 + [_I, _P])
     _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                     Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),

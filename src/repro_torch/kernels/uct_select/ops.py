@@ -44,7 +44,7 @@ def launch_tiles(n, w, vl, o, pn, valid, out, *, cp, vl_weight, wu):
     _build.check_operand(pn, "pn", torch.float32, (r,), dev)
     _build.check_operand(valid, "valid", torch.bool, (r, a), dev)
     _build.check_operand(out, "out", torch.int32, (r,), dev)
-    fn = _build.bind(_build.load("uct_select"), "uct_argmax_tiles",
+    fn = _build.bind("uct_select", "uct_argmax_tiles",
                      [_P] * 7 + [_I, _I, _F, _F, _I, _P])
     _build.check(fn(n.data_ptr(), w.data_ptr(), vl.data_ptr(), o.data_ptr(),
                     pn.data_ptr(), valid.data_ptr(), out.data_ptr(), r, a,
@@ -67,7 +67,7 @@ def launch_running(n, w, vl, o, pn, valid, pid, out, *, cp, vl_weight, wu):
     if lanes > 4096:
         raise ValueError(f"uct_argmax_running takes at most 4096 lanes, "
                          f"got {lanes}")
-    fn = _build.bind(_build.load("uct_select"), "uct_argmax_running",
+    fn = _build.bind("uct_select", "uct_argmax_running",
                      [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P])
     _build.check(fn(n.data_ptr(), w.data_ptr(), vl.data_ptr(), o.data_ptr(),
                     pn.data_ptr(), valid.data_ptr(), pid.data_ptr(),

@@ -5,7 +5,10 @@ versions on a card: ``test_torch_card_lm.py``).
 
 Inputs come from numpy under a seed.  Tolerances: float32 1e-5 absolute
 and relative (the orders of the sums differ); bfloat16 2e-2 (one bf16 ulp
-of outputs of magnitude ~1, as ``tests/test_kernels.py`` uses).
+of outputs of magnitude ~1, as ``tests/test_kernels.py`` uses), and the
+per-element limit of a kernel that rounds P to bf16 before PV
+(``ref.rounded_p_limit``), held here against the Pallas kernel, which
+rounds P so.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro.kernels.flash_attention import ops as jfa  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as tda  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tfa  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as tfr  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
@@ -101,6 +105,69 @@ def test_flash_plain_masks_kv_padding_and_empty_rows():
     assert torch.isfinite(none).all()
 
 
+def _limit_share(got, want, lim):
+    return float(((got.float() - want).abs() / lim).max())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal", [
+    (2, 100, 100, 4, 2, 64, True),
+    (1, 37, 90, 3, 1, 80, False),
+    (1, 70, 70, 2, 2, 128, True),
+    (2, 45, 45, 6, 2, 64, True),
+])
+def test_rounded_p_limit_holds_pallas_bf16_and_rejects_planted_fault(
+        b, sq, sk, h, hkv, d, causal):
+    """The Pallas kernel in interpret mode on bf16 inputs rounds P to bf16
+    before PV: it sits inside ``rounded_p_limit`` of the plain version run
+    in float32, while a fault planted in the same inputs (the diagonal one
+    position late; non-causal, the last key dropped) reads above it."""
+    q, k, v = _rand(10 + d, (b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))
+    bf = jnp.bfloat16
+    got = np.asarray(jfa.flash_attention(
+        jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+        causal=causal, interpret=True, blk_q=64, blk_k=64), np.float32)
+    tq, tk, tv = (_t(x, torch.bfloat16) for x in (q, k, v))
+    want, lim = tfr.rounded_p_limit(tq, tk, tv, atol=1e-5, causal=causal)
+    assert want.dtype == torch.float32 and want.shape == (b, sq, h, d)
+    assert _limit_share(torch.from_numpy(got), want, lim) <= 1.0
+    # P kept in float32 (the plain version in bf16) sits inside it too
+    assert _limit_share(tfa.flash_attention(tq, tk, tv, causal=causal),
+                        want, lim) <= 1.0
+    if causal:
+        planted = tfa.flash_attention(tq, tk, tv, causal=True, q_offset=1)
+    else:
+        planted = torch.from_numpy(np.asarray(jfa.flash_attention(
+            jnp.asarray(q, bf), jnp.asarray(k[:, :-1], bf),
+            jnp.asarray(v[:, :-1], bf), causal=False, interpret=True,
+            blk_q=64, blk_k=64), np.float32))
+    assert _limit_share(planted, want, lim) > 1.0
+
+
+def test_rounded_p_limit_is_the_derived_bound():
+    """limit = atol + 2^-8 |want| + 2^-8 M, with M the plain version run on
+    |v|: checked element by element on the formula's own terms."""
+    q, k, v = (_t(x) for x in _rand(11, (1, 9, 2, 16), (1, 9, 1, 16),
+                                    (1, 9, 1, 16)))
+    want, lim = tfr.rounded_p_limit(q, k, v, atol=1e-5, causal=True)
+    m = tfa.flash_attention(q, k, v.abs(), causal=True)
+    assert torch.equal(want, tfa.flash_attention(q, k, v, causal=True))
+    torch.testing.assert_close(lim, 1e-5 + 2.0 ** -8 * (want.abs() + m),
+                               rtol=1e-6, atol=0)
+    assert bool((m >= want.abs() - 1e-6).all())
+
+
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_flash_bf16_kernel_wrapper_rejects_head_dims_it_does_not_take(d):
+    """The tensor-core kernel takes D in {64, 80, 128}; the wrapper raises
+    for any other before it builds or launches anything."""
+    q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
+    before = dict(tfa.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.launch(q, q, q, torch.empty_like(q), causal=True, q_offset=0,
+                   logits_soft_cap=0.0, seq_k_valid=4)
+    assert tfa.launches == before
+
+
 # ---------------------------------------------------------------------------
 # K3 flash-decode
 # ---------------------------------------------------------------------------
@@ -154,3 +221,30 @@ def test_wrappers_raise_for_cuda_on_cpu_and_count_no_plain_launch():
     tda.decode_attention(q[:, :1], k, v, torch.ones(1, dtype=torch.int32))
     assert (tfa.launches, tda.launches) == before
 
+
+
+@pytest.mark.parametrize("ctas,sk,want", [
+    (768, 276, 1),      # smollm-135m decode: 256 sequences x 3 kv heads
+    (512, 512, 1),      # zamba2-1.2b decode: 16 slots x 32 kv heads
+    (8, 700, 5),        # short batch: splits of >= 128 keys
+    (3, 300, 2),
+    (15, 40, 1),        # too few keys to split
+    (100, 100000, 3),   # two blocks per SM: 264 / 100 rounded up
+])
+def test_decode_split_count(ctas, sk, want):
+    assert tda.split_count(ctas, sk) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 12),
+                                     (torch.float32, 6),
+                                     (torch.bfloat16, 136)])
+def test_decode_kernel_wrapper_rejects_rows_it_does_not_take(dtype, d):
+    """Rows of D * sizeof(T) bytes must be a multiple of 16 and D <= 128;
+    the wrapper raises before it builds or launches anything."""
+    q = torch.zeros(2, 1, 2, d, dtype=dtype)
+    kv = torch.zeros(2, 5, 1, d, dtype=dtype)
+    before = dict(tda.launches)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tda.launch(q, kv, kv, torch.ones(2, dtype=torch.int32),
+                   torch.empty_like(q))
+    assert tda.launches == before
