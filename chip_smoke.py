@@ -12,7 +12,8 @@ Phases; each prints one line and any mismatch or error exits non-zero:
   2. build    nvcc of every ``src/repro_torch/csrc/*.cu``, in parallel
               (with ``--before DIR``, also the earlier attention sources in
               DIR, timed beside the kernels); the SASS of the attention
-              kernels must hold HGMMA (K4 bf16) and 16-byte LDGSTS (K3)
+              kernels must hold HGMMA (K4 bf16) and 16-byte LDGSTS (K3),
+              that of the chunked scans HMMA (tensor-core mma.sync)
   3. kernels  the search kernels (K1, K2) against their plain PyTorch
               versions on the same full-size arena snapshots, taken
               mid-search from a run of the plain path; integers must be
@@ -22,10 +23,15 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               LM path's full-size shapes in bf16 and small shapes in
               float32; times beside PyTorch's SDPA
   5. rec-kernels  the recurrent kernels (K5 WKV6, K6 SSD) against their
-              plain versions at rwkv6-1.6b / zamba2-1.2b widths in bf16 at
-              the engine's prefill, decode and mcts-forward shapes, and in
-              float32 at the smoke shapes; K3 / K4 at zamba2's attention
-              shapes (32 heads of 128)
+              sequential plain versions at rwkv6-1.6b / zamba2-1.2b widths
+              in bf16 at the engine's prefill, decode and mcts-forward
+              shapes (bf16 sequences take the chunked tensor-core kernels,
+              single steps the sequential ones, timed beside them as
+              ``before_ms``), at ragged T (65, 130), K5 with decays down to
+              0, a state carried across two calls split mid-chunk (with a
+              planted fault), both routes at short T, and in float32 at
+              the smoke shapes; K3 / K4 at zamba2's attention shapes (32
+              heads of 128)
   6. small    P-game ``search_batch``, LM ``mcts_decode_batch`` and the
               serving engine (rwkv6 / zamba2 smoke configs, greedy and
               mcts), float32, through the kernels on the card equal the
@@ -44,7 +50,10 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
               ``profile_rec.txt``
   9. report   the wrappers' host cost, the kernels' JSON line, the card
-              line, the last line
+              line, the last line.  K5 / K6 have two rows each: the
+              sequential kernels (``wkv6_step`` / ``ssd_step``) timed at
+              decode, the chunked ones at prefill, each against the bound
+              of its own work (``bound_ms`` / ``chunk_bound``)
 
 Kernel times (``cuda_time``): ``TIMING_REPS`` back-to-back calls between
 two CUDA events and one synchronise, after two warm-up calls and queued
@@ -274,38 +283,47 @@ def phase_build(before=None):
     return secs, regs, sass_check(_build.BUILD_DIR)
 
 
+SASS_NEEDS = (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
+              ("flash_attention", "fa_wgmma_kernel", "UTMALDG"),
+              ("decode_attention", "da_kernel", "LDGSTS"),
+              ("ssm_chunk", "ssd_chunk_kernel", "HMMA"),
+              ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"))
+
+
 def sass_check(build_dir) -> dict:
-    """Count HGMMA (wgmma) and UTMALDG (TMA loads) in each
-    ``fa_wgmma_kernel`` and 16-byte LDGSTS (cp.async) in each ``da_kernel``
-    of the built libraries (``cuobjdump -sass``)."""
+    """Count, in each instantiation of a kernel of the built libraries
+    (``cuobjdump -sass``), the instructions ``SASS_NEEDS`` asks of it:
+    HGMMA (wgmma) and UTMALDG (TMA loads) in ``fa_wgmma_kernel``, 16-byte
+    LDGSTS (cp.async) in ``da_kernel``, HMMA (mma.sync) in the chunked
+    scans; fail where one is missing."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         say("sass not measured (no cuobjdump)")
         return {}
-    counts = {}
-    for lib, fn, what in (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
-                          ("flash_attention", "fa_wgmma_kernel", "UTMALDG"),
-                          ("decode_attention", "da_kernel", "LDGSTS")):
-        dump = subprocess.run([tool, "-sass", str(build_dir
-                                                  / f"lib{lib}.so")],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        for chunk in dump.split("Function : ")[1:]:
+    counts, dumps = {}, {}
+    for lib, fn, what in SASS_NEEDS:
+        if lib not in dumps:
+            dumps[lib] = subprocess.run(
+                [tool, "-sass", str(build_dir / f"lib{lib}.so")],
+                capture_output=True, text=True, check=True).stdout
+        found = 0
+        for chunk in dumps[lib].split("Function : ")[1:]:
             head = chunk.split("\n", 1)[0]
             if fn not in head:
                 continue
+            found += 1
             n = sum(1 for line in chunk.splitlines() if what in line
                     and (what != "LDGSTS" or ".128" in line))
             if n == 0:
                 fail(f"{lib}: {head[:90]} has no {what} instruction")
             counts[f"{what} {head.strip()[:120]}"] = n
+        if found == 0:
+            fail(f"{lib}: no {fn} in the SASS")
     say("sass " + ", ".join(
-        f"{fn}: {sum(v for k, v in counts.items() if k.startswith(what))} "
-        f"{what} in {sum(1 for k in counts if k.startswith(what))} "
-        f"instantiations" for fn, what in (("fa_wgmma_kernel", "HGMMA"),
-                                           ("fa_wgmma_kernel", "UTMALDG"),
-                                           ("da_kernel", "LDGSTS"))))
+        f"{fn}: {sum(v for k, v in counts.items() if k.startswith(what) and fn in k)} "
+        f"{what} in {sum(1 for k in counts if k.startswith(what) and fn in k)} "
+        f"instantiations" for _, fn, what in SASS_NEEDS))
     return counts
 
 
@@ -692,7 +710,8 @@ def phase_full(dev):
 PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
                 "::da_combine<", "sw_se_kernel", "sw_bes_kernel",
                 "sw_b_kernel", "uct_tiles_kernel", "uct_running_kernel",
-                "::wkv6_kernel<", "::ssd_kernel<")
+                "::wkv6_kernel<", "::ssd_kernel<", "::wkv6_chunk_kernel(",
+                "::ssd_chunk_kernel(")
 
 
 def profile_one(what: str, run):
@@ -1280,7 +1299,7 @@ def phase_lm_profile(dev, params):
 # the serving engine on the recurrent families: rwkv6-1.6b and zamba2-1.2b
 # ---------------------------------------------------------------------------
 REC_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
-REC_KERNELS = ("wkv6", "ssd")
+REC_KERNELS = ("wkv6", "ssd", "wkv6_chunked", "ssd_chunked")
 REC_SEED = 0
 # greedy: 32 requests over 16 slots (refill), ragged prompts of 64-384
 # tokens, 32 new tokens each
@@ -1340,11 +1359,15 @@ def rec_engine(cfg, params, spec, mode, dev):
     return eng, reqs
 
 
-def rec_inputs_wkv6(b, t, h, n, dt, dev, gen):
+def rec_inputs_wkv6(b, t, h, n, dt, dev, gen, strong=False):
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     r, k, v = (rnd(b, t, h, n).mul(0.5).to(dt) for _ in range(3))
-    # the model's decays: exp(-exp(w_raw)), w_raw around the init's -6
+    # the model's decays: exp(-exp(w_raw)), w_raw around the init's -6;
+    # strong: uniform squared, a twentieth set to exactly 0
     w = torch.exp(-torch.exp(rnd(b, t, h, n) * 0.5 - 6.0))
+    if strong:
+        w = torch.rand(b, t, h, n, generator=gen, device=dev)
+        w = torch.where(w < 0.05, torch.zeros_like(w), w * w)
     return r, k, v, w, rnd(h, n).mul(0.3).to(dt), rnd(b, h, n, n) * 0.1
 
 
@@ -1359,36 +1382,197 @@ def rec_inputs_ssd(b, t, h, p, n, dt, dev, gen):
             torch.ones(h, device=dev), rnd(b, h, p, n) * 0.1)
 
 
-def rec_check(what, got, plain, plain32, n_terms: int):
-    """(y, state) of a kernel against its plain version: y as
-    ``bf16_check``, its absolute part widened by ``n_terms`` float32 ulps
-    of the largest output (kernel and plain version sum each output's
-    ``n_terms`` terms in other orders, so near-cancelling outputs differ by
-    up to that much before the bf16 rounding); the float32 state within
-    F32_TOL + REC_STATE_RTOL relative of the plain version run in
-    float32."""
+def rec_shares(got, plain, plain32, n_terms: int) -> dict:
+    """(y, state) of a kernel against its plain version, as shares of
+    their limits (a share above 1 fails): y as ``bf16_check``, its absolute
+    part widened by ``n_terms`` float32 ulps of the largest output (kernel
+    and plain version sum each output's ``n_terms`` terms in other orders,
+    so near-cancelling outputs differ by up to that much before the bf16
+    rounding); the float32 state within F32_TOL + REC_STATE_RTOL relative
+    of the plain version run in float32."""
     atol = F32_TOL + n_terms * 2.0 ** -24 * float(plain32[0].abs().max())
-    out = bf16_check(what, got[0], plain[0], plain32[0], atol=atol)
-    g, w = got[1].double(), plain32[1].double()
-    d = (g - w).abs()
-    share = float((d / (F32_TOL + REC_STATE_RTOL * w.abs())).max())
-    if share > 1.0:
-        fail(f"{what}: state differs from the plain version in float32 by "
-             f"{float(d.max())} (limit {F32_TOL} + {REC_STATE_RTOL} |want|)")
-    out.update(state=float(d.max()), state_limit_share=share)
+    g = got[0].detach().double()
+    out = {}
+    for name, want, rtol in (("bf16", plain[0], BF16_RTOL),
+                             ("f32", plain32[0], BF16_RTOL_F32)):
+        w = want.detach().double()
+        d = (g - w).abs()
+        out[name] = float(d.max())
+        out[name + "_limit_share"] = float((d / (atol + rtol * w.abs()))
+                                           .max())
+    gs, ws = got[1].double(), plain32[1].double()
+    d = (gs - ws).abs()
+    out.update(state=float(d.max()), state_limit_share=float(
+        (d / (F32_TOL + REC_STATE_RTOL * ws.abs())).max()), atol=atol)
     return out
 
 
+def rec_check(what, got, plain, plain32, n_terms: int, planted=None):
+    """Fail unless ``got`` is within ``rec_shares``' limits and, when a
+    ``planted`` result (the same call with a planted fault) is given,
+    unless that one reads above them.  Returns the shares."""
+    out = rec_shares(got, plain, plain32, n_terms)
+    worst = max(out["bf16_limit_share"], out["f32_limit_share"],
+                out["state_limit_share"])
+    if worst > 1.0:
+        fail(f"{what}: differs from the plain version beyond its limits "
+             f"(y {out['bf16']} / {out['f32']}, state {out['state']}; "
+             f"shares {out['bf16_limit_share']:.3f} / "
+             f"{out['f32_limit_share']:.3f} / "
+             f"{out['state_limit_share']:.3f}; atol {out['atol']}, "
+             f"REC_STATE_RTOL {REC_STATE_RTOL})")
+    if planted is not None:
+        pl = rec_shares(planted, plain, plain32, n_terms)
+        out["planted_share"] = max(pl["f32_limit_share"],
+                                   pl["state_limit_share"])
+        if out["planted_share"] <= 1.0:
+            fail(f"{what}: the planted fault reads {pl}, within the limits: "
+                 f"the check cannot see it")
+    return out
+
+
+def chunk_bound(kind: str, b, t, h, n, p=None):
+    """Least time of the chunked route's own work (ms, by): its products
+    once each at the bf16 tensor-core rate plus its elementwise work at
+    the float32 rate, or its bytes, whichever is larger.  Per step and
+    head (chunk L = 64, widths 64): SSD C B^T and M x over the chunk (2 L
+    N + 2 L P flops) and C S^T and x^T B (2 P N each); WKV6 the scores and
+    A v (2 L N each) and the state term and update (2 N N each).
+    Elementwise: SSD the mask exp(cum_t - cum_s) dt_s and the split of M
+    (~8 L), of B (~8 N) and of S (~8 P N / L); WKV6 per channel a log,
+    four exps and their products and splits (~40 N), the own-sub-chunk
+    pairs (16 / 2 x 3 N), the split of the scores (~8 L) and of S (~8 N N
+    / L).  Bytes as the recurrence's bound (each operand once)."""
+    L = 64
+    if kind == "ssd":
+        mm = 2 * L * n + 2 * L * p + 4 * p * n
+        ew = 8 * L + 8 * n + 8 * p * n / L
+        nb = 2 * 2 * b * t * h * p + 2 * 2 * b * t * n + 4 * b * t * h \
+            + 2 * 4 * b * h * p * n
+    else:
+        mm = 4 * L * n + 4 * n * n
+        ew = 40 * n + 24 * n + 8 * L + 8 * n * n / L
+        nb = 4 * 2 * b * t * h * n + 4 * b * t * h * n + 2 * h * n \
+            + 2 * 4 * b * h * n * n
+    steps = b * t * h
+    t_o = steps * mm / BF16_FLOPS + steps * ew / F32_FLOPS
+    t_b = nb / HBM_BYTES_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def rec_bufs(args, y_dim: int):
+    """A kernel's operands and fresh outputs (y like ``args[y_dim]``, the
+    state like ``args[-1]``), for its launch function."""
+    return (*args, torch.empty(args[y_dim].shape, dtype=args[y_dim].dtype,
+                               device=args[y_dim].device),
+            torch.empty_like(args[-1]))
+
+
+def rec_case(what, name, fn, launch, chunked_ref, args, cast, n_seq,
+             counter, timed, host):
+    """One shape of K5 / K6: the wrapper's result held to the sequential
+    plain version (bf16 and float32 inputs) with the route's term count
+    (and, on the chunked route, its max |diff| from the plain chunked
+    arithmetic, reported); with ``timed``, the wrapper, its plain version
+    and (for T > 1) the sequential kernel through its launch function as
+    ``before_ms``, in turns; the bounds of the recurrence and of the
+    chunked route."""
+    before = counter[name + "_chunked"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    chunked = counter[name + "_chunked"] > before
+    plain32 = fn(*cast(args), impl="ref")
+    out = rec_check(what, got, fn(*args, impl="ref"), plain32,
+                    n_seq + (64 + 1 if chunked else 0))
+    out["route"] = "chunked" if chunked else "sequential"
+    if chunked:
+        cref = chunked_ref(*cast(args))
+        out.update(vs_chunked_plain=max_diff(got[0].float(), cref[0]),
+                   state_vs_chunked_plain=max_diff(got[1], cref[1]),
+                   chunked_plain_vs_plain=max_diff(cref[1], plain32[1]))
+    if not timed:
+        return out
+    cases = {"ms": (lambda _: fn(*args), {}),
+             "plain_ms": (lambda _: fn(*args, impl="ref"), dict(reps=3))}
+    if chunked:
+        cases["before_ms"] = (lambda _: launch(*rec_bufs(args, 0)), {})
+    out.update(time_turns(cases))
+    if host:
+        HOST[name + ("_chunked" if chunked else "_step")] = host_us(
+            lambda _: fn(*args))
+    return out
+
+
+def rec_case_wkv6(what, a5, timed=False, host=False):
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.rwkv6_scan import ref as WR
+    b, t, h, n = a5[0].shape
+    c5 = lambda a: (a[0].float(), a[1].float(), a[2].float(), a[3],
+                    a[4].float(), a[5])
+    out = rec_case(what, "wkv6", WK.wkv6, WK.launch, WR.wkv6_chunked_ref,
+                   a5, c5, n, WK.launches, timed, host)
+    if timed:
+        # r, k, v in and y out (bf16), w in (f32), u, state in and out
+        nb = 2 * 4 * a5[0].numel() + 4 * a5[3].numel() \
+            + 2 * a5[4].numel() + 2 * 4 * a5[5].numel()
+        # per step and head: y = r^T S (2 N^2), S <- S w + k v^T (3 N^2),
+        # and the bonus v_i * sum_j r_j u_j k_j (5 N)
+        out.update(bound=bound_ms(nb, 5.0 * b * t * h * n * (n + 1)),
+                   chunk_bound=chunk_bound("wkv6", b, t, h, n),
+                   shape=[b, t, h, n])
+    return out
+
+
+def rec_case_ssd(what, a6, timed=False, host=False):
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.kernels.ssm_scan import ref as SR
+    b, t, h, p = a6[0].shape
+    n = a6[3].shape[-1]
+    c6 = lambda a: (a[0].float(), a[1], a[2], a[3].float(), a[4].float(),
+                    a[5], a[6])
+    out = rec_case(what, "ssd", SS.ssd, SS.launch, SR.ssd_chunked_ref, a6,
+                   c6, n + 1, SS.launches, timed, host)
+    if timed:
+        # x in and y out, B and C in (bf16), dt in, state in and out
+        nb = 2 * 2 * a6[0].numel() + 2 * 2 * a6[3].numel() \
+            + 4 * a6[1].numel() + 2 * 4 * a6[6].numel()
+        out.update(bound=bound_ms(nb, 5.0 * b * t * h * p * n),
+                   chunk_bound=chunk_bound("ssd", b, t, h, n, p),
+                   shape=[b, t, h, p, n])
+    return out
+
+
+def rec_carry(what, fn, args, seq_dims, n_terms: int) -> dict:
+    """Two calls split mid-chunk (100 = 64 + 36 steps, then 66) held to
+    one call's plain version; the second call from a zeroed state must
+    read above the limits."""
+    part = lambda lo, hi, st: [z[:, lo:hi] if i in seq_dims else z
+                               for i, z in enumerate(args[:-1])] + [st]
+    y1, s1 = fn(*part(0, 100, args[-1]))
+    y2, s2 = fn(*part(100, 166, s1))
+    z2, zs = fn(*part(100, 166, torch.zeros_like(s1)))
+    torch.cuda.synchronize()
+    cast = [z.float() if z.dtype == torch.bfloat16 else z for z in args]
+    return rec_check(f"{what} carried across two calls",
+                     (torch.cat([y1, y2], 1), s2), fn(*args, impl="ref"),
+                     fn(*cast, impl="ref"), n_terms,
+                     planted=(torch.cat([y1, z2], 1), zs))
+
+
 def phase_rec_kernels(dev):
-    """K5 and K6 against their plain versions at full width (rwkv6-1.6b:
-    32 heads of 64; zamba2-1.2b: 64 heads of 64 x 64, one B / C group) in
-    bf16 with float32 decays / dt and states, at the engine's three shapes
-    (prefill: batch 1, T 384; decode: batch 16, T 1; the mcts generic
-    forward: batch 16, T = the search buffer), plus float32 at the smoke
-    shapes; K3 and K4 at zamba2's attention shapes (32 heads of 128).
-    CUDA-event times of each kernel and its plain version."""
+    """K5 and K6 against their sequential plain versions at full width
+    (rwkv6-1.6b: 32 heads of 64; zamba2-1.2b: 64 heads of 64 x 64, one B /
+    C group) in bf16 with float32 decays / dt and states, at the engine's
+    three shapes (prefill: batch 1, T 384; decode: batch 16, T 1; the mcts
+    generic forward: batch 16, T = the search buffer), where a chunk has a
+    tail (T 65, 130), with strong decays (K5), across two calls split
+    mid-chunk, plus float32 at the smoke shapes; K3 and K4 at zamba2's
+    attention shapes (32 heads of 128).  CUDA-event times of each kernel
+    (and, at T > 1, of the sequential kernel it replaces) and its plain
+    version, and of both routes at short T."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels import scan_chunks
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.rwkv6_scan import ops as WK
     from repro_torch.kernels.ssm_scan import ops as SS
@@ -1406,41 +1590,49 @@ def phase_rec_kernels(dev):
     res = {"wkv6": {}, "ssd": {}}
     for tag, (b, t) in shapes.items():
         a5 = rec_inputs_wkv6(b, t, h5, n5, bf, dev, gen)
-        c5 = lambda c: (c(a5[0]), c(a5[1]), c(a5[2]), a5[3], c(a5[4]),
-                        a5[5])
-        chk = rec_check(f"wkv6 {tag}", WK.wkv6(*a5),
-                        WK.wkv6(*a5, impl="ref"),
-                        WK.wkv6(*c5(lambda x: x.float()), impl="ref"), n5)
-        tm = time_turns({"ms": (lambda _: WK.wkv6(*a5), {}),
-                         "plain_ms": (lambda _: WK.wkv6(*a5, impl="ref"),
-                                      dict(reps=3))})
-        if tag == REC_TIMED:
-            HOST["wkv6"] = host_us(lambda _: WK.wkv6(*a5))
-        # r, k, v in and y out (bf16), w in (f32), u, state in and out
-        nb = 2 * 4 * a5[0].numel() + 4 * a5[3].numel() + 2 * a5[4].numel() \
-            + 2 * 4 * a5[5].numel()
-        # per step and head: y = r^T S (2 N^2), S <- S w + k v^T (3 N^2),
-        # and the bonus v_i * sum_j r_j u_j k_j (5 N)
-        fl = 5.0 * b * t * h5 * n5 * (n5 + 1)
-        res["wkv6"][tag] = dict(chk, **tm, bound=bound_ms(nb, fl),
-                                shape=[b, t, h5, n5])
+        res["wkv6"][tag] = rec_case_wkv6(f"wkv6 {tag}", a5, timed=True,
+                                         host=tag in REC_TIMED.values())
         a6 = rec_inputs_ssd(b, t, h6, p6, n6, bf, dev, gen)
-        c6 = lambda c: (c(a6[0]), a6[1], a6[2], c(a6[3]), c(a6[4]), a6[5],
-                        a6[6])
-        chk = rec_check(f"ssd {tag}", SS.ssd(*a6), SS.ssd(*a6, impl="ref"),
-                        SS.ssd(*c6(lambda x: x.float()), impl="ref"), n6 + 1)
-        tm = time_turns({"ms": (lambda _: SS.ssd(*a6), {}),
-                         "plain_ms": (lambda _: SS.ssd(*a6, impl="ref"),
-                                      dict(reps=3))})
-        if tag == REC_TIMED:
-            HOST["ssd"] = host_us(lambda _: SS.ssd(*a6))
-        # x in and y out, B and C in (bf16), dt in, state in and out
-        nb = 2 * 2 * a6[0].numel() + 2 * 2 * a6[3].numel() \
-            + 4 * a6[1].numel() + 2 * 4 * a6[6].numel()
-        res["ssd"][tag] = dict(chk, **tm,
-                               bound=bound_ms(nb, 5.0 * b * t * h6 * p6
-                                              * n6), shape=[b, t, h6, p6, n6])
+        res["ssd"][tag] = rec_case_ssd(f"ssd {tag}", a6, timed=True,
+                                       host=tag in REC_TIMED.values())
         del a5, a6
+    # the chunked kernels where a chunk has a tail, K5 with strong decays
+    # (down to exactly 0), and a state carried across two calls split
+    # mid-chunk (a planted fault: the second call from a zeroed state)
+    for t in (65, 130):
+        res["wkv6"][f"ragged{t}"] = rec_case_wkv6(
+            f"wkv6 T={t}", rec_inputs_wkv6(2, t, h5, n5, bf, dev, gen))
+        res["ssd"][f"ragged{t}"] = rec_case_ssd(
+            f"ssd T={t}", rec_inputs_ssd(2, t, h6, p6, n6, bf, dev, gen))
+    for b, t in ((1, REC_GREEDY["prompt_max"]), (2, 130)):
+        a5 = rec_inputs_wkv6(b, t, h5, n5, bf, dev, gen, strong=True)
+        res["wkv6"][f"strong{t}"] = rec_case_wkv6(f"wkv6 strong T={t}", a5)
+    carry = {"wkv6": rec_carry(
+        "wkv6", WK.wkv6, rec_inputs_wkv6(2, 166, h5, n5, bf, dev, gen),
+        (0, 1, 2, 3), n5 + WK.CHUNK + 1), "ssd": rec_carry(
+        "ssd", SS.ssd, rec_inputs_ssd(2, 166, h6, p6, n6, bf, dev, gen),
+        (0, 1, 3, 4), n6 + SS.CHUNK + 1)}
+    # the chunked kernels leave the flags they keep between calls at 0
+    torch.cuda.synchronize()
+    flags = scan_chunks.workspace(
+        dev, torch.cuda.current_stream(dev).cuda_stream, 0, 0)[1]
+    if int(flags.count_nonzero()):
+        fail(f"the chunked scans left {int(flags.count_nonzero())} of "
+             f"their flags raised")
+    # where the chunked route starts to pay: both routes at short T
+    cross = {}
+    for b in (1, REC_GREEDY["max_batch"]):
+        for t in (2, 4, 8, 16, 32, 64):
+            a5 = rec_inputs_wkv6(b, t, h5, n5, bf, dev, gen)
+            a6 = rec_inputs_ssd(b, t, h6, p6, n6, bf, dev, gen)
+            cross[f"wkv6 [{b}, {t}]"] = time_turns({
+                "chunked": (lambda _: WK.launch_chunked(*rec_bufs(a5, 0)),
+                            {}),
+                "sequential": (lambda _: WK.launch(*rec_bufs(a5, 0)), {})})
+            cross[f"ssd [{b}, {t}]"] = time_turns({
+                "chunked": (lambda _: SS.launch_chunked(*rec_bufs(a6, 0)),
+                            {}),
+                "sequential": (lambda _: SS.launch(*rec_bufs(a6, 0)), {})})
     # float32 at the smoke shapes, T = 37 and T = 1
     f32_err = 0.0
     rs, zs = get_smoke_config("rwkv6-1.6b"), get_smoke_config("zamba2-1.2b")
@@ -1492,11 +1684,20 @@ def phase_rec_kernels(dev):
         splits=DA.split_count(b * hkv, s))
     del kc, vc
     say("rec-kernels " + " ".join(
-        f"{k}/{tag}:y_err={v['bf16']},vs_f32={v['f32']}"
-        f"({100 * v['f32_limit_share']:.1f}%),state_err={v['state']},"
-        f"ms={v['ms']:.5f},plain_ms={v['plain_ms']:.5f},"
-        f"bound_ms={v['bound'][0]:.5f}"
+        f"{k}/{tag}[{v['route']}]:y_err={v['bf16']},vs_f32={v['f32']}"
+        f"({100 * v['f32_limit_share']:.1f}%),state_err={v['state']}"
+        f"({100 * v['state_limit_share']:.1f}%)"
+        + (f",ms={v['ms']:.5f},plain_ms={v['plain_ms']:.5f},"
+           f"bound_ms={v['bound'][0]:.5f},"
+           f"chunk_bound_ms={v['chunk_bound'][0]:.5f}" if "ms" in v else "")
+        + (f",before_ms={v['before_ms']:.5f}" if "before_ms" in v else "")
         for k in res for tag, v in res[k].items())
+        + " carry " + " ".join(
+            f"{k}:share={100 * max(v['f32_limit_share'], v['state_limit_share']):.1f}%,"
+            f"planted={v['planted_share']:.3g}x" for k, v in carry.items())
+        + " crossover(ms chunked/sequential) " + " ".join(
+            f"{k}:{v['chunked']:.5f}/{v['sequential']:.5f}"
+            for k, v in cross.items())
         + f" f32_err={f32_err}; zamba2 attention "
         + " ".join(f"{k}:limit_share="
                    f"{v.get('limit_share', v.get('f32_limit_share'))},"
@@ -1505,7 +1706,7 @@ def phase_rec_kernels(dev):
                    + (f",before_ms={v['before_ms']:.5f}"
                       if "before_ms" in v else "")
                    for k, v in attn.items()))
-    return res, attn, f32_err
+    return res, attn, f32_err, carry, cross
 
 
 def phase_rec_small(dev):
@@ -1542,7 +1743,10 @@ def rec_expected(cfg, eng, mode) -> dict:
     n_apps = cfg.n_layers // cfg.shared_attn_every if zamba else 0
     scan = "ssd" if zamba else "wkv6"
     if mode == "greedy":
-        want = {scan: cfg.n_layers * (st.admissions + st.steps)}
+        # every prefill (prompts of 64-384 tokens) takes the chunked
+        # route, every decode step (T = 1) the sequential one
+        want = {scan: cfg.n_layers * (st.admissions + st.steps),
+                f"{scan}_chunked": cfg.n_layers * st.admissions}
         if zamba:
             want.update(flash_attention_bf16=n_apps * st.admissions,
                         decode_attention=n_apps * st.steps)
@@ -1551,7 +1755,8 @@ def rec_expected(cfg, eng, mode) -> dict:
     # per search: one root forward, then per tick one expand step and
     # rollout_len - 1 playout steps, each a full forward (generic fallback)
     fwd = st.steps * (1 + ticks * REC_MCTS["rollout_len"])
-    want = {scan: cfg.n_layers * fwd, "bes": st.steps * ticks}
+    want = {scan: cfg.n_layers * fwd, f"{scan}_chunked": cfg.n_layers * fwd,
+            "bes": st.steps * ticks}
     if zamba:
         want.update(flash_attention_bf16=n_apps * fwd, decode_attention=0)
     return want
@@ -1704,12 +1909,20 @@ SOURCES = {
                              "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
-    "wkv6": ("src/repro_torch/csrc/rwkv6_scan.cu",
-             "src/repro/kernels/rwkv6_scan/kernel.py:69"),
-    "ssd": ("src/repro_torch/csrc/ssm_scan.cu",
-            "src/repro/kernels/ssm_scan/kernel.py:65"),
+    "wkv6_step": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:69"),
+    "ssd_step": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:65"),
+    "wkv6_chunked": ("src/repro_torch/csrc/rwkv6_chunk.cu",
+                     "src/repro/kernels/rwkv6_scan/kernel.py:69"),
+    "ssd_chunked": ("src/repro_torch/csrc/ssm_chunk.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:65"),
 }
-REC_TIMED = "prefill"   # the shape whose times the kernels line carries
+# the shape whose times the kernels line carries: the sequential kernels
+# (rows ``*_step``: they walk the steps one by one) serve single steps,
+# the chunked ones sequences
+REC_TIMED = {"wkv6_step": "decode", "ssd_step": "decode",
+             "wkv6_chunked": "prefill", "ssd_chunked": "prefill"}
 
 
 def main() -> int:
@@ -1734,7 +1947,8 @@ def main() -> int:
     build_s, ptxas, sass = phase_build(before)
     kern = phase_kernels(dev)
     attn, attn_bf16 = phase_attn_kernels(dev)
-    rec_kern, rec_attn, rec_f32 = phase_rec_kernels(dev)
+    rec_kern, rec_attn, rec_f32, rec_carry_, rec_cross = \
+        phase_rec_kernels(dev)
     torch.cuda.synchronize()
     reset_launches()        # the small main paths (float32 smoke models)
     small = phase_small(dev)
@@ -1755,8 +1969,10 @@ def main() -> int:
     # launches on the main paths: the float32 smoke runs, P-game, LM
     # decode, the engines
     paths = (small_counts, counts, lm_run["launches"], rec_counts)
-    total = {k: sum(p.get(k, 0) for p in paths) for k in SOURCES}
-    idle = [k for k, v in total.items() if v == 0]
+    total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
+    for k in ("wkv6", "ssd"):     # the counters count calls of both routes
+        total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
+    idle = [k for k in SOURCES if total[k] == 0]
     if idle:
         fail(f"kernels {idle} were launched on no main path")
     kernels = []
@@ -1768,10 +1984,16 @@ def main() -> int:
                 for t, v in rec_attn.items() if t.split("/")[0] == k])
             ms, pms, (bms, by), lib = a["ms"], a["plain_ms"], a["bound"], \
                 a["sdpa_ms"]
-        elif k in rec_kern:
-            t = rec_kern[k][REC_TIMED]
-            err = max(v["bf16"] for v in rec_kern[k].values())
-            ms, pms, (bms, by), lib = t["ms"], t["plain_ms"], t["bound"], None
+        elif k.split("_")[0] in rec_kern:
+            cases = rec_kern[k.split("_")[0]]
+            route = "chunked" if k.endswith("_chunked") else "sequential"
+            t = cases[REC_TIMED[k]]
+            err = max(v["bf16"] for v in cases.values()
+                      if v["route"] == route)
+            # each route against the least time of its own work: the
+            # chunked kernels run their products on the bf16 tensor cores
+            ms, pms, lib = t["ms"], t["plain_ms"], None
+            bms, by = t["chunk_bound" if route == "chunked" else "bound"]
         else:
             err, ms, pms, (bms, by) = kern["loss/independent"][k]
             err, lib = max(kern[t][k][0] for t in kern), None
@@ -1791,6 +2013,7 @@ def main() -> int:
               "full_runs": runs, "launch_counts": counts, "profile": prof,
               "lm_full": lm_run, "lm_profile": lm_prof,
               "rec_kernels": rec_kern, "rec_attn_zamba2": rec_attn,
+              "rec_carry": rec_carry_, "rec_crossover": rec_cross,
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,
               "rec_full": rec_runs, "rec_launches": rec_counts,
               "rec_profile": rec_prof, "launches_total": total,

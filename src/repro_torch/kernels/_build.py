@@ -7,8 +7,9 @@ included, so a build takes seconds.  Flags: ``sm_90a``, ``-O3``, no fast
 math; ``-fmad=false`` for the sources in ``EXACT_FMA``, whose results must
 round as the plain PyTorch version's separate tensor ops do (the UCT scores,
 or argmax decisions flip on near ties; the backups and the recurrent
-states, held bit-equal).  The attention sources are built with contraction
-into FMAs: their checks allow for the order of the sums.
+states, held bit-equal).  The attention sources and the chunked scans are
+built with contraction into FMAs: their checks allow for the order of the
+sums.
 
 ``build_all()`` compiles every source at once, one ``nvcc`` process per
 source.  A library is rebuilt when a source it depends on is newer.
@@ -28,10 +29,12 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("uct_select", "search_wave", "flash_attention",
-           "decode_attention", "rwkv6_scan", "ssm_scan")
+           "decode_attention", "rwkv6_scan", "ssm_scan", "rwkv6_chunk",
+           "ssm_chunk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 EXACT_FMA = ("uct_select", "search_wave", "rwkv6_scan", "ssm_scan")
+DEFINES: List[str] = []      # set by ``use_defines`` only
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -63,7 +66,18 @@ def _stale(name: str) -> bool:
 
 def flags(name: str) -> List[str]:
     """nvcc's flags for ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + (["-fmad=false"] if name in EXACT_FMA else [])
+    return (NVCC_FLAGS + (["-fmad=false"] if name in EXACT_FMA else [])
+            + DEFINES)
+
+
+def use_defines(defines: List[str], build_dir: Path) -> None:
+    """Build every library from here on with the extra nvcc ``defines``
+    into ``build_dir``, apart from the normal build: a diagnostic build
+    (``kernels/chunk_phases.py``).  Only before the first load."""
+    global BUILD_DIR, DEFINES
+    if _libs:
+        raise RuntimeError("use_defines comes before the first load")
+    BUILD_DIR, DEFINES = Path(build_dir), list(defines)
 
 
 def _start(name: str) -> subprocess.Popen:

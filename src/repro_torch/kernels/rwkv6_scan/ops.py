@@ -1,20 +1,29 @@
-"""WKV6 recurrence: the CUDA kernel wrapper with its plain version.
+"""WKV6 recurrence: the CUDA kernel wrappers with their plain version.
 
-``wkv6`` runs the sequential scan of ``csrc/rwkv6_scan.cu`` (kernel
-``wkv6_kernel``, replacing the Pallas ``wkv6_bh`` / ``_wkv6_kernel`` of
-``repro/kernels/rwkv6_scan/kernel.py``) on CUDA tensors, and the plain
-version (``ref.py``) on CPU tensors.  Public layout as the JAX wrapper's:
-r, k, v, w ``[B, T, H, N]``, u ``[H, N]``, state ``[B, H, N, N]``.
+``wkv6`` runs, on CUDA tensors, one of two kernels replacing the Pallas
+``wkv6_bh`` / ``_wkv6_kernel`` of ``repro/kernels/rwkv6_scan/kernel.py``:
 
-The kernel computes the recurrence step by step for every T (the JAX
-package's ``impl="auto"`` takes a chunked matmul form for T > 1; the two
-agree within float32 rounding).  r, k, v and u share a type (float32 or
+* ``csrc/rwkv6_chunk.cu`` (``wkv6_chunk_kernel``): bfloat16 with T >=
+  ``CHUNKED_MIN_T`` and N a multiple of 8 — a chunked form on the tensor
+  cores whose exponents are all local sums of log decays (<= 0), so it
+  stays exact where the Pallas form, which divides by cumulative decays,
+  overflows (chunks of 64, sub-chunks of 16, one block per batch, head and
+  chunk);
+* ``csrc/rwkv6_scan.cu`` (``wkv6_kernel``): everything else (single
+  steps, float32) — the recurrence step by step, bit-equal to the plain
+  version in float32;
+
+and the plain version (``ref.py`` ``wkv6_ref``) on CPU tensors.  Public
+layout as the JAX wrapper's: r, k, v, w ``[B, T, H, N]``, u ``[H, N]``,
+state ``[B, H, N, N]``.  r, k, v and u share a type (float32 or
 bfloat16); w and the state are float32, the output state too.
 
-Bound on an H100: bytes at decode, the sequential dependence at prefill;
-see the source note.  Dispatch: a CPU tensor takes the plain version; a
-CUDA tensor launches the kernel (N <= 64) and a failed build or launch
-raises.  ``launches`` counts kernel launches.
+Bound on an H100: bytes at decode, the products at prefill; see the
+source notes.  Dispatch: a CPU tensor takes the plain version; a CUDA
+tensor launches a kernel (N <= 64) and a failed build or launch raises.
+``launches["wkv6"]`` counts wrapper calls that launched (one each,
+whichever kernel), ``launches["wkv6_chunked"]`` those that took the
+chunked kernel.
 """
 from __future__ import annotations
 
@@ -22,14 +31,22 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, scan_chunks
 from repro_torch.kernels.rwkv6_scan import ref as R
 
-launches = {"wkv6": 0}
+launches = {"wkv6": 0, "wkv6_chunked": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 64
+CHUNK = 64
+# bf16 sequences from this length on take the chunked kernel.  Both
+# routes at rwkv6-1.6b's widths, ms per call, chunked / sequential
+# (``chip_smoke.py`` phase 5, device-paced, H100 80GB HBM3 at 700 W):
+#   batch 1:  T 16 0.0172 / 0.0169, T 32 0.0177 / 0.0294;
+#   batch 16: T 32 0.0456 / 0.0377, T 64 0.0533 / 0.0840.
+# The engine's prefills run at batch 1, so 32.
+CHUNKED_MIN_T = 32
 
 
 def launch(r, k, v, w, u, state, y, state_out):
@@ -56,6 +73,43 @@ def launch(r, k, v, w, u, state, y, state_out):
     return y, state_out
 
 
+def chunked_route(r) -> bool:
+    """Whether ``wkv6`` sends this (CUDA, packed) ``r`` to the chunked
+    kernel (bf16, T >= CHUNKED_MIN_T, N a multiple of 8 up to 64)."""
+    return (r.dtype == torch.bfloat16 and r.shape[1] >= CHUNKED_MIN_T
+            and r.shape[3] % 8 == 0 and r.shape[3] <= MAX_N)
+
+
+def launch_chunked(r, k, v, w, u, state, y, state_out):
+    """Launch ``wkv6_chunk_kernel`` on checked packed operands (bf16, N a
+    multiple of 8)."""
+    b, t, h, n = r.shape
+    dev = r.device
+    if r.dtype != torch.bfloat16 or n % 8 or n > MAX_N:
+        raise ValueError("the chunked wkv6 takes bf16 and N a multiple of 8 "
+                         "up to 64")
+    for x, nm in ((r, "r"), (k, "k"), (v, "v"), (y, "y")):
+        _build.check_operand(x, nm, r.dtype, (b, t, h, n), dev)
+    _build.check_operand(w, "w", torch.float32, (b, t, h, n), dev)
+    _build.check_operand(u, "u", r.dtype, (h, n), dev)
+    for x, nm in ((state, "state"), (state_out, "state_out")):
+        _build.check_operand(x, nm, torch.float32, (b, h, n, n), dev)
+    nc = -(-t // CHUNK)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s_mid, flags = scan_chunks.workspace(dev, stream,
+                                         (nc - 1) * b * h * n * n,
+                                         b * h * nc + 1)
+    fn = _build.bind("rwkv6_chunk", "wkv6_chunk_fwd",
+                     [_P] * 10 + [_I] * 4 + [_P])
+    _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                    state_out.data_ptr(), s_mid.data_ptr(), flags.data_ptr(),
+                    b, t, h, n, stream), "wkv6_chunked")
+    launches["wkv6"] += 1
+    launches["wkv6_chunked"] += 1
+    return y, state_out
+
+
 def wkv6(r, k, v, w, u, state, *, impl=None):
     """(y ``[B, T, H, N]`` in r's dtype, final state ``[B, H, N, N]``
     float32)."""
@@ -65,5 +119,6 @@ def wkv6(r, k, v, w, u, state, *, impl=None):
     w = w.float().contiguous()
     u = u.to(r.dtype).contiguous()
     state = state.float().contiguous()
-    return launch(r, k, v, w, u, state, torch.empty_like(r),
-                  torch.empty_like(state))
+    go = launch_chunked if chunked_route(r) else launch
+    return go(r, k, v, w, u, state, torch.empty_like(r),
+              torch.empty_like(state))
