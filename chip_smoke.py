@@ -16,8 +16,11 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               that of the chunked scans HMMA (tensor-core mma.sync)
   3. kernels  the search kernels (K1, K2) against their plain PyTorch
               versions on the same full-size arena snapshots, taken
-              mid-search from a run of the plain path; integers must be
-              equal, ``value`` within VALUE_RTOL
+              mid-search from a run of the plain path (loss/independent
+              and wu/running); integers must be equal, ``value`` within
+              VALUE_RTOL; K2b on the level-1 board and on a level-0 one
+              (every lane at the root); kernel, plain and wrapper host
+              times in ROUNDS rounds
   4. attn     the attention kernels (K4 bf16 on the tensor cores and
               float32, K3 flash-decode) against their plain versions at the
               LM path's full-size shapes in bf16 and small shapes in
@@ -50,7 +53,10 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
               ``profile_rec.txt``
   9. report   the wrappers' host cost, the kernels' JSON line, the card
-              line, the last line.  K5 / K6 have two rows each: the
+              line, the last line.  K1a / K1b have two rows each: ``se`` /
+              ``bes`` timed on the loss/independent snapshot and
+              ``se_wu_running`` / ``bes_wu_running`` on the wu/running one,
+              each with its own variant's launches.  K5 / K6 have two: the
               sequential kernels (``wkv6_step`` / ``ssd_step``) timed at
               decode, the chunked ones at prefill, each against the bound
               of its own work (``bound_ms`` / ``chunk_bound``)
@@ -62,7 +68,8 @@ operands the real caller finds cold (K3's cache slices) rotate so that
 together they exceed the 50 MB L2; kernel, plain version, SDPA and the
 earlier kernel timed in turns, the median of ``TURNS``.  Host cost
 (``host_us``): a wrapper's microseconds per call on the host clock over
-many calls with no synchronise.
+many calls with no synchronise; for the search wrappers the median of
+ROUNDS rounds taken in turns with their kernel timing.
 
 Details go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
 """
@@ -93,9 +100,12 @@ SMALL = dict(batch=4, num_actions=4, game_depth=6, budget=64, lanes=8,
 SNAPSHOT_TICKS = 24
 TIMING_REPS = 20      # back-to-back calls between two CUDA events
 TURNS = 3             # kernel / plain / library timed in turns; the median
+ROUNDS = 5            # the search kernels: kernel, plain and host rounds
 HOST_CALLS = 200      # wrapper calls timed on the host clock
 HOLD_CYCLES = 20_000_000   # ~10 ms spin before a timed run (see cuda_time)
 HOST: dict = {}       # kernel -> host microseconds per wrapper call
+HOST_SPREAD: dict = {}  # search kernels: (min, max) of HOST's rounds
+CHAINS: dict = {}     # snapshot -> the search kernels' chain lengths
 BEFORE: dict = {}     # the parent's attention kernels (--before), bound
 
 
@@ -118,6 +128,17 @@ def clone_tree(t):
         {k: v.clone() for k, v in getattr(t, f.name).items()}
         if f.name == "state" else getattr(t, f.name).clone())
         for f in dataclasses.fields(t)})
+
+
+def clone_planes(t):
+    """A copy of an arena's planes that shares its ``state`` leaves (the
+    search kernels and their plain versions never write them; an LM
+    arena's are its KV caches, gigabytes a copy)."""
+    from repro_torch.core.arena import TreeArena
+    import dataclasses
+    return TreeArena(**{f.name: getattr(t, f.name) if f.name == "state"
+                        else getattr(t, f.name).clone()
+                        for f in dataclasses.fields(t)})
 
 
 def max_diff(a, b) -> float:
@@ -206,12 +227,25 @@ def time_turns(cases: dict, turns: int = TURNS) -> dict:
     """``cases`` = ``{name: (fn, cuda_time kwargs)}``, each timed by
     ``cuda_time`` in turns (in order, then reversed, ...), ``turns`` times
     round inside this one process; the median per name."""
+    return time_rounds(cases, {}, turns)[0]
+
+
+def time_rounds(cases: dict, host_cases: dict, rounds: int = ROUNDS):
+    """``time_turns`` over ``rounds`` rounds, each followed by every
+    ``host_cases`` entry (``{name: (fn, host_us kwargs)}``) timed by
+    ``host_us``.  Returns the median per case, and per host case its
+    median, min and max over the rounds."""
     got = {k: [] for k in cases}
-    for t in range(turns):
-        for k in (list(cases) if t % 2 == 0 else list(cases)[::-1]):
+    hosts = {k: [] for k in host_cases}
+    for r in range(rounds):
+        for k in (list(cases) if r % 2 == 0 else list(cases)[::-1]):
             fn, kw = cases[k]
             got[k].append(cuda_time(fn, **kw))
-    return {k: statistics.median(v) for k, v in got.items()}
+        for k, (fn, kw) in host_cases.items():
+            hosts[k].append(host_us(fn, **kw))
+    return ({k: statistics.median(v) for k, v in got.items()},
+            {k: (statistics.median(v), min(v), max(v))
+             for k, v in hosts.items()})
 
 
 def host_us(fn, setup=None, calls=HOST_CALLS) -> float:
@@ -413,6 +447,37 @@ def snapshot(dev, sp, ticks, seed):
     return dom, tree, se, ep, pb
 
 
+def max_group(keys, member) -> int:
+    """The largest number of ``member`` entries of one row of ``keys``
+    ``[B, L]`` that share a key: the longest walk over a group of lanes."""
+    best = 0
+    for k, m in zip(keys.cpu(), member.cpu()):
+        if bool(m.any()):
+            best = max(best, int(torch.unique(k[m], return_counts=True)[1]
+                                 .max()))
+    return best
+
+
+def chain_lengths(sel, pb) -> dict:
+    """The dependent chains of one launch on a snapshot (see the source
+    note in ``csrc/search_wave.cu``): Select's levels (one past the deepest
+    lane, where the walk stops, at most max_depth), the running walk's
+    steps summed over those levels (the largest group of lanes leaving one
+    node), Expand's walk (the largest group of lanes on one leaf) and
+    Backup's (the largest group of lanes holding one node in a column of
+    ``pb``'s paths: all valid lanes at the root)."""
+    path, depth, valid = sel["path"], sel["depth"], sel["valid"]
+    deep = int(depth.max())
+    steps = [max_group(path[:, :, d], valid & (depth > d))
+             for d in range(deep)]
+    pbv = pb["valid"][..., None] & (pb["path"] >= 0)
+    return {"levels": min(deep + 1, FULL["max_depth"]),
+            "running_steps": sum(steps), "running_steps_by_level": steps,
+            "expand_walk": max_group(sel["leaf"], valid),
+            "backup_walk": max(max_group(pb["path"][:, :, c], pbv[:, :, c])
+                               for c in range(pb["path"].shape[2]))}
+
+
 def wave_bytes(tree, paths, a, extra_rows=0) -> float:
     """Bytes a wave must move: each distinct row on the paths read once
     (children + child N/W/in-flight = 16 B per slot, plus its own stats),
@@ -476,11 +541,26 @@ def phase_kernels(dev):
         r_t = U.uct_argmax(n_, w_, v_, pn, impl="ref", **kw)
         k_r = U.uct_argmax_running(n_, w_, v_, pn, node, impl="cuda", **kw)
         r_r = U.uct_argmax_running(n_, w_, v_, pn, node, impl="ref", **kw)
+        # K2b on a level-0 board too: every lane at the root, one group,
+        # the walk's longest chain (L steps)
+        node0 = torch.zeros_like(node)
+        ch0 = tree.children[bi, node0]
+        idx0 = ch0.clamp_min(0)
+        n0_, w0_, v0_ = (tree.visits[bia, idx0], tree.value[bia, idx0],
+                         infl[bia, idx0])
+        pn0 = tree.visits[bi, node0] + infl[bi, node0]
+        kw0 = dict(kw, valid=ch0 >= 0, child_o=v0_)
+        k_r0 = U.uct_argmax_running(n0_, w0_, v0_, pn0, node0, impl="cuda",
+                                    **kw0)
+        r_r0 = U.uct_argmax_running(n0_, w0_, v0_, pn0, node0, impl="ref",
+                                    **kw0)
         torch.cuda.synchronize()
         err_t, err_r = max_diff(k_t, r_t), max_diff(k_r, r_r)
-        if err_t or err_r:
+        err_r0 = max_diff(k_r0, r_r0)
+        if err_t or err_r or err_r0:
             fail(f"uct_select {tag}: kernel picks differ from the plain "
-                 f"version (tiles {err_t}, running {err_r})")
+                 f"version (tiles {err_t}, running {err_r}, running on the "
+                 f"level-0 board {err_r0})")
         # timings at these shapes, kernel and plain version in turns
         # (fresh clones made outside the timed span)
         se_leaf = se["leaf"].to(torch.int32).contiguous()
@@ -496,7 +576,12 @@ def phase_kernels(dev):
         board = (tree.batch, lanes, a)
         out2 = torch.empty(tree.batch, lanes, dtype=torch.int32, device=dev)
         pid = node.to(torch.int32).contiguous()
-        tm = time_turns({
+        flat0 = [x.reshape(board).float().contiguous()
+                 for x in (n0_, w0_, v0_)]
+        pnf0 = pn0.float().contiguous()
+        vf0 = (ch0 >= 0).contiguous()
+        pid0 = node0.to(torch.int32).contiguous()
+        cases = {
             "se": (lambda t: W.launch_se(t, sp, lanes, True), fresh),
             "se/plain": (lambda t: W.se(t, sp, lanes, True, impl="ref"),
                          fresh),
@@ -517,21 +602,28 @@ def phase_kernels(dev):
                 pnf.view(tree.batch, lanes), vf.view(board), pid, out2,
                 cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
             "uct_argmax_running/plain": (lambda _: U.uct_argmax_running(
-                n_, w_, v_, pn, node, impl="ref", **kw), {})})
+                n_, w_, v_, pn, node, impl="ref", **kw), {}),
+            "uct_argmax_running_l0": (lambda _: U.launch_running(
+                flat0[0], flat0[1], flat0[2], flat0[2], pnf0, vf0, pid0,
+                out2, cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
+            "uct_argmax_running_l0/plain": (lambda _: U.uct_argmax_running(
+                n0_, w0_, v0_, pn0, node0, impl="ref", **kw0), {})}
+        hosts = {}
         if tag == "loss/independent":     # the wrappers the paths call
-            host["se"] = host_us(lambda t: W.se(t, sp, lanes, True,
-                                                impl="cuda"),
-                                 calls=30, **fresh)
-            host["bes"] = host_us(lambda t: W.bes(t, sp, lanes, True, se,
-                                                  pb, impl="cuda"),
-                                  calls=30, **fresh)
-            host["b"] = host_us(lambda t: W.b(t, sp, pb, impl="cuda"),
-                                calls=30, **fresh)
-            host["uct_argmax_tiles"] = host_us(lambda _: U.uct_argmax(
-                n_, w_, v_, pn, impl="cuda", **kw))
-            host["uct_argmax_running"] = host_us(
-                lambda _: U.uct_argmax_running(n_, w_, v_, pn, node,
-                                               impl="cuda", **kw))
+            few = dict(calls=30, **fresh)
+            hosts = {
+                "se": (lambda t: W.se(t, sp, lanes, True, impl="cuda"), few),
+                "bes": (lambda t: W.bes(t, sp, lanes, True, se, pb,
+                                        impl="cuda"), few),
+                "b": (lambda t: W.b(t, sp, pb, impl="cuda"), few),
+                "uct_argmax_tiles": (lambda _: U.uct_argmax(
+                    n_, w_, v_, pn, impl="cuda", **kw), {}),
+                "uct_argmax_running": (lambda _: U.uct_argmax_running(
+                    n_, w_, v_, pn, node, impl="cuda", **kw), {})}
+        tm, hs = time_rounds(cases, hosts)
+        for k, (med, lo, hi) in hs.items():
+            host[k] = med
+            HOST_SPREAD[k] = (lo, hi)
         # bounds from this snapshot's data
         sel_paths = sel1["path"]
         b_sel = wave_bytes(tree, sel_paths, a) + sel_paths.numel() * 4 * 2
@@ -546,19 +638,36 @@ def phase_kernels(dev):
                   "b": bound_ms(b_pb, 0.0),
                   "uct_argmax_tiles": bound_ms(board_bytes, board_flops),
                   "uct_argmax_running": bound_ms(board_bytes + rows * 4,
-                                                 board_flops)}
+                                                 board_flops),
+                  "uct_argmax_running_l0": bound_ms(board_bytes + rows * 4,
+                                                    board_flops)}
         errs = {"se": err_se, "bes": err_bes, "b": err_b,
                 "uct_argmax_tiles": float(err_t),
-                "uct_argmax_running": float(err_r)}
+                "uct_argmax_running": float(err_r),
+                "uct_argmax_running_l0": float(err_r0)}
         results[tag] = {k: (errs[k], tm[k], tm[k + "/plain"], bounds[k])
                         for k in bounds}
+        CHAINS[tag] = {"se": chain_lengths(sel1, pb),
+                       "bes": chain_lengths(nse1, pb),
+                       "uct_argmax_running": max_group(node, valid.any(-1)),
+                       "uct_argmax_running_l0": max_group(node0,
+                                                          vf0.any(-1))}
         del dom, tree, se, ep, pb
     worst = {k: max(results[t][k][0] for t in results)
              for k in results["loss/independent"]}
     counts = all_launches()
-    say("kernels " + " ".join(f"{k}:max_abs_err={v},launches={counts[k]}"
+    say("kernels " + " ".join(f"{k}:max_abs_err={v},launches="
+                              f"{counts.get(k, '-')}"
                               for k, v in worst.items())
         + " (vs plain at full size; launches of this phase)")
+    for tag, res in results.items():
+        c = CHAINS[tag]
+        say(f"chains {tag} se={c['se']} bes={c['bes']} "
+            f"k2b={c['uct_argmax_running']} "
+            f"k2b_l0={c['uct_argmax_running_l0']}")
+        say(f"kernel-ms {tag} " + " ".join(
+            f"{k}={v[1]:.5f}(plain {v[2]:.4f},bound {v[3][0]:.6f})"
+            for k, v in res.items()))
     return results
 
 
@@ -628,7 +737,9 @@ FULL_RUNS = [("pipeline", "mega", "loss", "independent"),
              ("pipeline", "lockstep", "loss", "independent"),
              ("pipeline", "lockstep", "wu", "running")]
 # the kernels each full-size run must launch
-RUN_KERNELS = {("pipeline", "mega"): ("bes",), ("tree", "mega"): ("se", "b"),
+RUN_KERNELS = {("pipeline", "mega", "independent"): ("bes",),
+               ("pipeline", "mega", "running"): ("bes", "bes_running"),
+               ("tree", "mega"): ("se", "b"),
                ("pipeline", "lockstep", "independent"): ("uct_argmax_tiles",),
                ("pipeline", "lockstep", "running"): ("uct_argmax_running",)}
 
@@ -1135,13 +1246,14 @@ def lm_buffers(cfg, lm, dev):
         torch.from_numpy(lens).to(dev)
 
 
-def lm_bes_check(cfg, params, buf, lens, dc, dev) -> float:
+def lm_bes_check(cfg, params, buf, lens, dc, dev) -> dict:
     """K1b at the LM path's shapes: the 16 roots' pipelined search (PUCT
     rows, A=4, 16 lanes, depth 8, 66-row arena) advanced LM_BES_TICKS ticks
     by the plain path, then one Backup -> Expand -> Select tick by the
     kernel and by its plain version on clones of that snapshot.  Integer
     planes and states must be equal, ``value`` / ``prior`` within
-    VALUE_RTOL; returns the largest float difference."""
+    VALUE_RTOL.  Returns the largest float difference and the kernel's and
+    the plain version's times on that snapshot (in turns)."""
     from repro_torch.core import stages as S
     from repro_torch.core.tree import init_tree
     from repro_torch.kernels.search_wave import ops as W
@@ -1169,7 +1281,16 @@ def lm_bes_check(cfg, params, buf, lens, dc, dev) -> float:
     err = compare_trees("lm bes", t1, t2)
     compare_bufs("lm bes sel", nse1, nse2, SEL_KEYS)
     compare_bufs("lm bes es", es1, es2, ES_KEYS)
-    return err
+    se_leaf = se["leaf"].to(torch.int32).contiguous()
+    se_valid = se["valid"].contiguous()
+    pbk = W.pack_pb(tree, sp, pb)
+    fresh = dict(setup=lambda: clone_planes(tree))
+    tm = time_turns({
+        "bes": (lambda t: W.launch_bes(t, sp, lanes, True, se_leaf,
+                                       se_valid, pbk), fresh),
+        "bes/plain": (lambda t: W.bes(t, sp, lanes, True, se, pb,
+                                      impl="ref"), fresh)})
+    return {"max_abs_err": err, "ms": tm["bes"], "plain_ms": tm["bes/plain"]}
 
 
 def phase_lm_full(dev):
@@ -1259,7 +1380,8 @@ def phase_lm_full(dev):
         fail(f"lm full: a step planted one position off reads {planted}, "
              f"within STEP_TOL {STEP_TOL}: the check cannot see it")
     del cache
-    bes_err = lm_bes_check(cfg, params, buf, lens, dc, dev)
+    lm_bes = lm_bes_check(cfg, params, buf, lens, dc, dev)
+    bes_err = lm_bes["max_abs_err"]
     run = {"seconds": secs, "tokens_per_s": b * n_new / secs,
            "playouts_per_s": b * n_new * lm["budget"] / secs,
            "peak_mem_bytes": peak, "launches": counts,
@@ -1267,7 +1389,8 @@ def phase_lm_full(dev):
            "planted_step_max_abs": planted,
            "logit_abs_max": float(lg2.abs().max()),
            "logit_abs_mean": float(lg2.abs().mean()),
-           "bes_max_abs_err": bes_err, "nodes_mean": nodes_mean,
+           "bes_max_abs_err": bes_err, "bes_ms": lm_bes["ms"],
+           "bes_plain_ms": lm_bes["plain_ms"], "nodes_mean": nodes_mean,
            "tokens": toks}
     say(f"lm-full {cfg.name} {b} prompts x {n_new} tokens in {secs:.3f} s: "
         f"{run['tokens_per_s']:.2f} tokens/s, {run['playouts_per_s']:.1f} "
@@ -1275,7 +1398,8 @@ def phase_lm_full(dev):
         + ",".join(f"{k}={counts[k]}" for k in want)
         + f"; step vs prefill {step_err} (planted one off: "
         f"{planted['late']} late, {planted['early']} early); bes at these "
-        f"shapes == plain (max float diff {bes_err})")
+        f"shapes == plain (max float diff {bes_err}), {lm_bes['ms']:.5f} ms "
+        f"(plain {lm_bes['plain_ms']:.3f})")
     return run, params
 
 
@@ -1897,6 +2021,10 @@ SOURCES = {
            "src/repro/kernels/search_wave/kernel.py:403"),
     "bes": ("src/repro_torch/csrc/search_wave.cu",
             "src/repro/kernels/search_wave/kernel.py:415"),
+    "se_wu_running": ("src/repro_torch/csrc/search_wave.cu",
+                      "src/repro/kernels/search_wave/kernel.py:403"),
+    "bes_wu_running": ("src/repro_torch/csrc/search_wave.cu",
+                       "src/repro/kernels/search_wave/kernel.py:415"),
     "b": ("src/repro_torch/csrc/search_wave.cu",
           "src/repro/kernels/search_wave/kernel.py:427"),
     "uct_argmax_tiles": ("src/repro_torch/csrc/uct_select.cu",
@@ -1972,6 +2100,9 @@ def main() -> int:
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
+    for k in ("se", "bes"):       # and of both level assignments
+        total[k + "_wu_running"] = total.pop(k + "_running")
+        total[k] -= total[k + "_wu_running"]
     idle = [k for k in SOURCES if total[k] == 0]
     if idle:
         fail(f"kernels {idle} were launched on no main path")
@@ -1995,16 +2126,25 @@ def main() -> int:
             ms, pms, lib = t["ms"], t["plain_ms"], None
             bms, by = t["chunk_bound" if route == "chunked" else "bound"]
         else:
-            err, ms, pms, (bms, by) = kern["loss/independent"][k]
-            err, lib = max(kern[t][k][0] for t in kern), None
-            if k == "bes":
+            # K1 / K2 on the P-game snapshots: the running rows on the
+            # wu/running one, the others on loss/independent
+            tag = "wu/running" if k.endswith("_wu_running") \
+                else "loss/independent"
+            base = k.replace("_wu_running", "")
+            err, ms, pms, (bms, by) = kern[tag][base]
+            lib = None
+            if base == "bes":
                 err = max(err, lm_run["bes_max_abs_err"])
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": repl, "launches": total[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lib})
-    say("host-us " + " ".join(f"{k}={v:.1f}" for k, v in HOST.items())
-        + " (host microseconds per wrapper call, no synchronise)")
+    say("host-us " + " ".join(
+        f"{k}={v:.1f}" + ("[{:.1f}-{:.1f}]".format(*HOST_SPREAD[k])
+                          if k in HOST_SPREAD else "")
+        for k, v in HOST.items())
+        + " (host microseconds per wrapper call, no synchronise; search "
+        f"wrappers: median [min-max] of {ROUNDS} rounds)")
     detail = {"card": card, "device": name, "build_s": build_s,
               "ptxas": ptxas, "sass": sass, "kernels": kern,
               "attn_kernels": attn,
@@ -2018,6 +2158,7 @@ def main() -> int:
               "rec_full": rec_runs, "rec_launches": rec_counts,
               "rec_profile": rec_prof, "launches_total": total,
               "launches_small": small_counts, "host_us": HOST,
+              "host_us_spread": HOST_SPREAD, "chains": CHAINS,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     write_out("chip_smoke.json", [json.dumps(detail, indent=1)])

@@ -9,10 +9,11 @@ Three wrappers, one per ``__global__`` entry of ``csrc/search_wave.cu``:
   tick, replacing ``bes_call`` / ``_bes_kernel``;
 * ``b``   — Backup alone, replacing ``b_call`` / ``_b_kernel``.
 
-Bound on an H100: latency — a wave is max_depth dependent levels of small
-gathers per root plus two short serial lane walks, far below the card's
-byte and operation rates.  The kernels run one block per root, one thread
-per lane; see the source note in ``csrc/search_wave.cu``.
+Bound on an H100: a dependent chain — a wave is at most max_depth
+dependent levels of small gathers per root, plus short walks over the
+lanes that share a node, far below the card's byte and operation rates.
+The kernels run one block per root, each lane's A children spread over a
+sub-group of threads; see the source note in ``csrc/search_wave.cu``.
 
 Each wrapper takes its plain version (``ref.py`` and ``core.stages``) for
 CPU tensors or ``impl="ref"``, and launches the kernel for CUDA tensors,
@@ -21,7 +22,8 @@ the in-flight plane / prior / children in place; the parent and action
 pointers, the free-list bookkeeping and the path append are applied here
 (``_apply_es``), as the JAX package's ``ops.py`` does.  The in-flight plane
 is ``vloss`` in "loss" mode and ``unobs`` in "wu" mode.  ``launches`` counts
-kernel launches per entry point.
+kernel launches per entry point, and ``se_running`` / ``bes_running`` those
+of them that walk the running assignment (``level_assign="running"``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.core.arena import UNEXPANDED, TreeArena, set_rows
 from repro_torch.kernels import _build
 from repro_torch.kernels.search_wave import ref as R
 
-launches = {"se": 0, "bes": 0, "b": 0}
+launches = {"se": 0, "bes": 0, "b": 0, "se_running": 0, "bes_running": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CFG_ARGS = [_I] * 6 + [_F, _F] + [_I] * 4 + [_P]
@@ -83,11 +85,12 @@ def _outs(b, lanes, p, dev):
             e(b, lanes), e(b, lanes), e(b, lanes))
 
 
-def _check_launch(lanes, a, p):
+def _check_launch(lanes, a, sp, select=True):
     if not 1 <= lanes <= 1024:
         raise ValueError(f"search_wave kernels take 1..1024 lanes, got {lanes}")
-    fn = _build.bind("search_wave", "sw_smem_bytes", [_I, _I, _I])
-    smem = fn(lanes, a, p)
+    fn = _build.bind("search_wave", "sw_smem_bytes", [_I] * 5)
+    smem = fn(lanes, a, sp.path_len, int(select and sp.puct),
+              int(select and sp.running))
     if smem > MAX_SMEM:
         raise ValueError(f"search_wave needs {smem} B of shared memory for "
                          f"lanes={lanes}, A={a}; the card offers {MAX_SMEM}")
@@ -131,13 +134,14 @@ def launch_se(tree: TreeArena, sp, lanes: int, wave_valid):
     place; returns ``(s_leaf, s_depth, s_path, s_dup, e_can, e_slot,
     e_new)``."""
     b, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
-    _check_launch(lanes, a, sp.path_len)
+    _check_launch(lanes, a, sp)
     planes = _planes(tree, sp)
     outs = _outs(b, lanes, sp.path_len, dev)
     fn = _build.bind("search_wave", "sw_se", [_P] * 16 + _CFG_ARGS)
     _build.check(fn(*[t.data_ptr() for t in planes + list(outs)],
                     *_cfg_args(sp, lanes, b, n, a, wave_valid, dev)), "sw_se")
     launches["se"] += 1
+    launches["se_running"] += sp.running
     return outs
 
 
@@ -147,7 +151,7 @@ def launch_bes(tree: TreeArena, sp, lanes: int, wave_valid, se_leaf,
     value, the in-flight plane, prior and children in place; returns the
     select and expand outputs as ``launch_se`` does."""
     b, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
-    _check_launch(lanes, a, sp.path_len)
+    _check_launch(lanes, a, sp)
     planes = _planes(tree, sp)
     _build.check_operand(se_leaf, "se_leaf", torch.int32, (b, lanes), dev)
     _build.check_operand(se_valid, "se_valid", torch.bool, (b, lanes), dev)
@@ -158,6 +162,7 @@ def launch_bes(tree: TreeArena, sp, lanes: int, wave_valid, se_leaf,
     _build.check(fn(*ptrs, *_cfg_args(sp, lanes, b, n, a, wave_valid, dev)),
                  "sw_bes")
     launches["bes"] += 1
+    launches["bes_running"] += sp.running
     return outs
 
 
@@ -166,7 +171,7 @@ def launch_b(tree: TreeArena, sp, pb) -> None:
     value, the in-flight plane and prior in place."""
     bsz, n, a, dev = tree.batch, tree.max_nodes, tree.num_actions, tree.device
     lanes, p = pb[0].shape[1], sp.path_len
-    _check_launch(lanes, a, p)
+    _check_launch(lanes, a, sp, select=False)
     planes = _planes(tree, sp)[:4]
     fn = _build.bind("search_wave", "sw_b", [_P] * 10 + [_I] * 5 + [_P])
     _build.check(fn(*[t.data_ptr() for t in planes + list(pb)], bsz, n, a,

@@ -7,10 +7,11 @@
 (``uct_running_kernel``, replacing ``uct_argmax_running_call`` /
 ``_uct_running_kernel``).
 
-Bound on an H100: launch latency and the dependent chain of a row's scan —
-a Select level's board is a few KB.  The kernels read each operand once
-(one thread per row; one warp per root for the running walk).  See the
-source note in ``csrc/uct_select.cu``.
+Bound on an H100: launch latency and a dependent chain — a Select level's
+board is a few KB.  ``uct_tiles_kernel`` runs one thread per row; the
+running walk stages each root's board in shared memory and walks every
+group of lanes sharing a parent at once, so its chain is the largest group.
+See the source note in ``csrc/uct_select.cu``.
 
 Dispatch: a CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches the kernel, and a failed build or launch raises.  ``impl="cuda"``
@@ -67,12 +68,17 @@ def launch_running(n, w, vl, o, pn, valid, pid, out, *, cp, vl_weight, wu):
     if lanes > 4096:
         raise ValueError(f"uct_argmax_running takes at most 4096 lanes, "
                          f"got {lanes}")
+    need = _build.bind("uct_select", "uct_running_scratch_ints",
+                       [_I, _I])(lanes, a)
+    scratch = (torch.empty(b * need, dtype=torch.int32, device=dev)
+               if need else None)
     fn = _build.bind("uct_select", "uct_argmax_running",
-                     [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P])
+                     [_P] * 9 + [_I, _I, _I, _F, _F, _I, _P])
     _build.check(fn(n.data_ptr(), w.data_ptr(), vl.data_ptr(), o.data_ptr(),
                     pn.data_ptr(), valid.data_ptr(), pid.data_ptr(),
-                    out.data_ptr(), b, lanes, a, float(cp), float(vl_weight),
-                    int(wu), _stream(dev)),
+                    out.data_ptr(), scratch.data_ptr() if need else None, b,
+                    lanes, a, float(cp), float(vl_weight), int(wu),
+                    _stream(dev)),
                  "uct_argmax_running")
     launches["uct_argmax_running"] += 1
     return out
