@@ -10,21 +10,28 @@ Phases; each prints one line and any mismatch or error exits non-zero:
 
   1. env      the card's name and power limit, torch's device name
   2. build    nvcc of every ``src/repro_torch/csrc/*.cu``, in parallel
-              (with ``--before DIR``, also the earlier attention sources in
-              DIR, timed beside the kernels); the SASS of the attention
-              kernels must hold HGMMA (K4 bf16) and 16-byte LDGSTS (K3),
-              that of the chunked scans HMMA (tensor-core mma.sync)
-  3. kernels  the search kernels (K1, K2) against their plain PyTorch
+              (with ``--before DIR``, a checkout of an earlier commit,
+              also its K4, K3 and K2a sources by its own ``_build``; its
+              wrappers are timed beside the port's); SASS checks: HGMMA
+              and UTMALDG in the bf16 K4, 16-byte LDGSTS and no HMMA in the
+              float32 K4, 16-byte LDGSTS in K3, HMMA (tensor-core
+              mma.sync) in the chunked scans, REDUX in K2a
+  3. kernels  K2a against its plain version on synthetic boards (A 1-130,
+              finished rows, sentinel ties, int32 and float32 counts); the
+              search kernels (K1, K2) against their plain PyTorch
               versions on the same full-size arena snapshots, taken
               mid-search from a run of the plain path (loss/independent
               and wu/running); integers must be equal, ``value`` within
               VALUE_RTOL; K2b on the level-1 board and on a level-0 one
               (every lane at the root); kernel, plain and wrapper host
-              times in ROUNDS rounds
+              times in ROUNDS rounds (K2a through its wrapper on the
+              arena's int32 planes, and on the float32 board)
   4. attn     the attention kernels (K4 bf16 on the tensor cores and
               float32, K3 flash-decode) against their plain versions at the
               LM path's full-size shapes in bf16 and small shapes in
-              float32; times beside PyTorch's SDPA
+              float32 (the float32 K4 also at D 16 / 20, ragged Sq,
+              ``seq_k_valid`` < Sk, rows with no key); times beside
+              PyTorch's SDPA
   5. rec-kernels  the recurrent kernels (K5 WKV6, K6 SSD) against their
               sequential plain versions at rwkv6-1.6b / zamba2-1.2b widths
               in bf16 at the engine's prefill, decode and mcts-forward
@@ -38,7 +45,9 @@ Phases; each prints one line and any mismatch or error exits non-zero:
   6. small    P-game ``search_batch``, LM ``mcts_decode_batch`` and the
               serving engine (rwkv6 / zamba2 smoke configs, greedy and
               mcts), float32, through the kernels on the card equal the
-              plain versions on the CPU; the float32 K4's main path
+              plain versions on the CPU; the float32 K4's main path:
+              its launches tallied by path, shape and knobs, each shape
+              held to the plain version, each path's busiest timed
   7. full     the P-game main path at full size (FULL below): pipeline /
               tree with the fused wave and the lockstep select, both
               vl_modes and both level_assigns; the LM main path (LM_FULL:
@@ -75,6 +84,7 @@ Details go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -106,7 +116,9 @@ HOLD_CYCLES = 20_000_000   # ~10 ms spin before a timed run (see cuda_time)
 HOST: dict = {}       # kernel -> host microseconds per wrapper call
 HOST_SPREAD: dict = {}  # search kernels: (min, max) of HOST's rounds
 CHAINS: dict = {}     # snapshot -> the search kernels' chain lengths
-BEFORE: dict = {}     # the parent's attention kernels (--before), bound
+K2A: dict = {}        # snapshot -> K2a on the float32 board, the parent's
+                      # (--before) and an empty launch (torch.cuda._sleep)
+BEFORE: dict = {}     # the parent's K4, K3 and K2a wrappers (--before)
 
 
 def fail(msg: str) -> None:
@@ -289,18 +301,17 @@ def phase_env():
 
 def phase_build(before=None):
     """nvcc of every source in parallel (and, with ``--before DIR``, of
-    the parent's attention sources in DIR, into ``chiprun_out/before``);
-    then the SASS of the attention kernels: every ``fa_wgmma_kernel`` must
-    hold HGMMA (wgmma) and UTMALDG (TMA) instructions and every
-    ``da_kernel`` 16-byte LDGSTS (cp.async) copies."""
+    the parent's ``BEFORE_SOURCES`` by the parent's own ``_build``, into
+    DIR's build directory); then the SASS checks of ``sass_check``."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    procs = start_before(before) if before else {}
+    if before:
+        BEFORE.update(load_before(before))
     logs = _build.build_all(force=True)
-    for name, (proc, lib) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"nvcc failed for the parent's {name}.cu:\n{out}")
+    if before:
+        BEFORE["_thread"].join()
+        if BEFORE["_thread"].err:
+            fail(f"the parent's build failed: {BEFORE['_thread'].err[0]}")
     secs = time.perf_counter() - t0
     regs = []
     for name, log in logs.items():
@@ -311,32 +322,38 @@ def phase_build(before=None):
             elif "registers" in line or "spill" in line:
                 regs.append(f"{name}: {fn[:100]}: {line.strip()}")
     say(f"build {len(logs)} sources in {secs:.2f} s (parallel nvcc)"
-        + (f" and the parent's {sorted(procs)}" if procs else ""))
-    if procs:
-        bind_before({k: lib for k, (_, lib) in procs.items()})
+        + (f" and the parent's {list(BEFORE_SOURCES)} from {before}"
+           if before else ""))
     return secs, regs, sass_check(_build.BUILD_DIR)
 
 
 SASS_NEEDS = (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
               ("flash_attention", "fa_wgmma_kernel", "UTMALDG"),
+              ("flash_attention", "fa_kernel", "LDGSTS"),
               ("decode_attention", "da_kernel", "LDGSTS"),
               ("ssm_chunk", "ssd_chunk_kernel", "HMMA"),
-              ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"))
+              ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"),
+              ("uct_select", "uct_tiles_kernel", "REDUX"))
+# instructions a kernel must not hold: the float32 K4 stays IEEE float32
+# FFMA, off the tensor cores
+SASS_FORBIDS = (("flash_attention", "fa_kernel", "HMMA"),)
 
 
 def sass_check(build_dir) -> dict:
     """Count, in each instantiation of a kernel of the built libraries
     (``cuobjdump -sass``), the instructions ``SASS_NEEDS`` asks of it:
     HGMMA (wgmma) and UTMALDG (TMA loads) in ``fa_wgmma_kernel``, 16-byte
-    LDGSTS (cp.async) in ``da_kernel``, HMMA (mma.sync) in the chunked
-    scans; fail where one is missing."""
+    LDGSTS (cp.async) in ``fa_kernel`` and ``da_kernel``, HMMA (mma.sync)
+    in the chunked scans, REDUX (the first-max) in ``uct_tiles_kernel``;
+    fail where one is missing, or where one of ``SASS_FORBIDS`` (HMMA in
+    ``fa_kernel``) is present."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         say("sass not measured (no cuobjdump)")
         return {}
     counts, dumps = {}, {}
-    for lib, fn, what in SASS_NEEDS:
+    for lib, fn, what in SASS_NEEDS + SASS_FORBIDS:
         if lib not in dumps:
             dumps[lib] = subprocess.run(
                 [tool, "-sass", str(build_dir / f"lib{lib}.so")],
@@ -349,6 +366,11 @@ def sass_check(build_dir) -> dict:
             found += 1
             n = sum(1 for line in chunk.splitlines() if what in line
                     and (what != "LDGSTS" or ".128" in line))
+            if (lib, fn, what) in SASS_FORBIDS:
+                if n:
+                    fail(f"{lib}: {head[:90]} holds {n} {what} "
+                         f"instructions")
+                continue
             if n == 0:
                 fail(f"{lib}: {head[:90]} has no {what} instruction")
             counts[f"{what} {head.strip()[:120]}"] = n
@@ -357,61 +379,54 @@ def sass_check(build_dir) -> dict:
     say("sass " + ", ".join(
         f"{fn}: {sum(v for k, v in counts.items() if k.startswith(what) and fn in k)} "
         f"{what} in {sum(1 for k in counts if k.startswith(what) and fn in k)} "
-        f"instantiations" for _, fn, what in SASS_NEEDS))
+        f"instantiations" for _, fn, what in SASS_NEEDS)
+        + ", " + ", ".join(f"{fn}: no {what}" for _, fn, what in SASS_FORBIDS))
     return counts
 
 
-# the parent's attention entry points (``--before``), timed beside the
-# redesigned kernels in one process
-BEFORE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+# the parent's kernel layer (``--before``): its own ``_build`` (its
+# sources, flags and build directory) and its own wrappers of the attention
+# kernels and K2a, loaded under other names and timed beside the redesigned
+# kernels in one process through their public entry points
+BEFORE_SOURCES = ("flash_attention", "decode_attention", "uct_select")
 
 
-def start_before(src_dir) -> dict:
-    from repro_torch.kernels import _build
-    out = ROOT / "chiprun_out" / "before"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in ("flash_attention", "decode_attention"):
-        lib = out / f"lib{name}.so"
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *BEFORE_FLAGS, "-o", str(lib),
-             str(Path(src_dir) / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
-    return procs
+def load_before(root) -> dict:
+    """The kernel layer of the checkout at ``root`` (``src/repro_torch``):
+    its ``kernels/_build.py`` and the ``ops.py`` of ``BEFORE_SOURCES``,
+    each wrapper bound to that ``_build``, so the parent's own code names
+    its C entry points and their arguments.  Returns the modules and the
+    thread that builds the parent's sources (started here)."""
+    import importlib.util
+    import threading
+    pkg = Path(root).resolve() / "src" / "repro_torch" / "kernels"
 
+    def load(name, path):
+        if not path.exists():
+            fail(f"--before: no {path}")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        return mod
 
-def bind_before(libs) -> None:
-    import ctypes
-    import math
-    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
-    fa = ctypes.CDLL(str(libs["flash_attention"])).flash_attention_fwd
-    fa.argtypes, fa.restype = [P] * 4 + [I] * 9 + [F, F, I, P], I
-    da = ctypes.CDLL(str(libs["decode_attention"])).decode_attention_fwd
-    da.argtypes, da.restype = [P] * 5 + [I] * 5 + [L] * 4 + [F, I, P], I
-    code = {torch.float32: 0, torch.bfloat16: 1}
-    stream = lambda: torch.cuda.current_stream().cuda_stream
+    build = load("before_build", pkg / "_build.py")
+    build.SOURCES = BEFORE_SOURCES
+    mods = {s: load(f"before_{s}", pkg / s / "ops.py")
+            for s in BEFORE_SOURCES}
+    for mod in mods.values():
+        mod._build = build
+    err = []
 
-    def run_fa(q, k, v, out, causal):
-        b, sq, h, d = q.shape
-        rc = fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                sq, k.shape[1], k.shape[1], h, k.shape[2], d, int(causal), 0,
-                1.0 / math.sqrt(d), 0.0, code[q.dtype], stream())
-        if rc:
-            fail(f"the parent's flash_attention: CUDA error {rc}")
-        return out
-
-    def run_da(q, k, v, vl, out):
-        b, _, h, d = q.shape
-        rc = da(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-                out.data_ptr(), b, k.shape[1], h, k.shape[2], d, k.stride(0),
-                k.stride(1), v.stride(0), v.stride(1), 1.0 / math.sqrt(d),
-                code[q.dtype], stream())
-        if rc:
-            fail(f"the parent's decode_attention: CUDA error {rc}")
-        return out
-    BEFORE.update(flash_attention=run_fa, decode_attention=run_da)
+    def run():
+        try:
+            build.build_all(force=True)
+        except Exception as e:      # reported by the caller's join
+            err.append(e)
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.err = err
+    return dict(mods, _build=build, _thread=thread)
 
 
 def make_domain(cfg):
@@ -489,6 +504,45 @@ def wave_bytes(tree, paths, a, extra_rows=0) -> float:
     return rows * (a * 16 + 12) + extra_rows
 
 
+def k2a_boards(dev) -> None:
+    """K2a against its plain version (on the card, same inputs) on
+    synthetic boards of 300 rows, A in {1, 4, 16, 33, 130}: finished rows
+    (every column invalid, index 0), rows whose every column scores the
+    sentinel (a tie, the lowest column), both modes, int32 and float32
+    count planes, and ``child_o`` the same tensor as ``child_vl``.
+    Decisions must be equal."""
+    from repro_torch.kernels.uct_select import ops as U
+    gen = torch.Generator().manual_seed(17)
+    i32 = torch.int32
+    for a in (1, 4, 16, 33, 130):
+        rows = 300
+        cnt = lambda hi: torch.randint(0, hi, (rows, a), generator=gen,
+                                       dtype=i32)
+        n, vl, o = cnt(40), cnt(3), cnt(4)
+        w = torch.randn(rows, a, generator=gen) * 3
+        fresh = torch.rand(rows, generator=gen) < 0.2
+        n[fresh], vl[fresh], o[fresh] = 0, 0, 0
+        valid = torch.rand(rows, a, generator=gen) < 0.8
+        valid[torch.rand(rows, generator=gen) < 0.15] = False
+        pn = torch.randint(0, 300, (rows,), generator=gen, dtype=i32)
+        for counts in (i32, torch.float32):
+            x = [t.to(counts).to(dev) for t in (n, vl, o, pn)]
+            wd, vd = w.to(dev), valid.to(dev)
+            for mode in ("loss", "wu"):
+                for infl in (x[2], x[1]):   # O; O the same tensor as vl
+                    kw = dict(cp=0.7, vl_weight=1.0, valid=vd, child_o=infl,
+                              vl_mode=mode)
+                    got = U.uct_argmax(x[0], wd, x[1], x[3], impl="cuda",
+                                       **kw)
+                    want = U.uct_argmax(x[0], wd, x[1], x[3], impl="ref",
+                                        **kw)
+                    if max_diff(got, want) != 0:
+                        fail(f"uct_argmax_tiles A={a} {counts} {mode}: "
+                             f"kernel picks differ from the plain version")
+    say("k2a boards A 1/4/16/33/130 x int32/float32 x loss/wu kernel == "
+        "plain (finished rows, sentinel ties, O is vl)")
+
+
 def phase_kernels(dev):
     """K1 / K2 against their plain versions on full-size snapshots; times
     in turns; the wrappers' host cost (``HOST``)."""
@@ -497,6 +551,7 @@ def phase_kernels(dev):
     results, host = {}, HOST
     lanes, a = FULL["lanes"], FULL["num_actions"]
     reset_launches()
+    k2a_boards(dev)
     for mode, assign in (("loss", "independent"), ("wu", "running")):
         sp = search_params(FULL, vl_mode=mode, level_assign=assign,
                            kernels="cuda")
@@ -571,7 +626,7 @@ def phase_kernels(dev):
         flat = [x.reshape(rows, a).float().contiguous() for x in (n_, w_, v_)]
         pnf = pn.reshape(rows).float().contiguous()
         vf = valid.reshape(rows, a).contiguous()
-        out = torch.empty(rows, dtype=torch.int32, device=dev)
+        kwf = dict(kw, valid=vf, child_o=flat[2])
         wu = mode == "wu"
         board = (tree.batch, lanes, a)
         out2 = torch.empty(tree.batch, lanes, dtype=torch.int32, device=dev)
@@ -591,11 +646,15 @@ def phase_kernels(dev):
                                           impl="ref"), fresh),
             "b": (lambda t: W.launch_b(t, sp, pbk), fresh),
             "b/plain": (lambda t: W.b(t, sp, pb, impl="ref"), fresh),
-            "uct_argmax_tiles": (lambda _: U.launch_tiles(
-                flat[0], flat[1], flat[2], flat[2], pnf, vf, out, cp=sp.cp,
-                vl_weight=sp.vl_weight, wu=wu), {}),
+            # K2a through its wrapper on the arena's int32 planes and on
+            # the float32 board (no copy on either)
+            "uct_argmax_tiles": (lambda _: U.uct_argmax(
+                n_, w_, v_, pn, impl="cuda", **kw), {}),
+            "uct_argmax_tiles/f32": (lambda _: U.uct_argmax(
+                flat[0], flat[1], flat[2], pnf, impl="cuda", **kwf), {}),
             "uct_argmax_tiles/plain": (lambda _: U.uct_argmax(
                 n_, w_, v_, pn, impl="ref", **kw), {}),
+            "launch_floor": (lambda _: torch.cuda._sleep(0), {}),
             "uct_argmax_running": (lambda _: U.launch_running(
                 flat[0].view(board), flat[1].view(board),
                 flat[2].view(board), flat[2].view(board),
@@ -608,6 +667,10 @@ def phase_kernels(dev):
                 out2, cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
             "uct_argmax_running_l0/plain": (lambda _: U.uct_argmax_running(
                 n0_, w0_, v0_, pn0, node0, impl="ref", **kw0), {})}
+        if BEFORE:    # the parent's wrapper on the float32 board: no copy
+            cases["uct_argmax_tiles/before"] = (
+                lambda _: BEFORE["uct_select"].uct_argmax(
+                    flat[0], flat[1], flat[2], pnf, impl="cuda", **kwf), {})
         hosts = {}
         if tag == "loss/independent":     # the wrappers the paths call
             few = dict(calls=30, **fresh)
@@ -620,6 +683,10 @@ def phase_kernels(dev):
                     n_, w_, v_, pn, impl="cuda", **kw), {}),
                 "uct_argmax_running": (lambda _: U.uct_argmax_running(
                     n_, w_, v_, pn, node, impl="cuda", **kw), {})}
+            if BEFORE:     # the parent's wrapper on the int32 planes
+                hosts["uct_argmax_tiles/before"] = (
+                    lambda _: BEFORE["uct_select"].uct_argmax(
+                        n_, w_, v_, pn, impl="cuda", **kw), {})
         tm, hs = time_rounds(cases, hosts)
         for k, (med, lo, hi) in hs.items():
             host[k] = med
@@ -647,6 +714,10 @@ def phase_kernels(dev):
                 "uct_argmax_running_l0": float(err_r0)}
         results[tag] = {k: (errs[k], tm[k], tm[k + "/plain"], bounds[k])
                         for k in bounds}
+        K2A[tag] = {k: tm[n] for k, n in (
+            ("f32_ms", "uct_argmax_tiles/f32"),
+            ("before_ms", "uct_argmax_tiles/before"),
+            ("launch_floor_ms", "launch_floor")) if n in tm}
         CHAINS[tag] = {"se": chain_lengths(sel1, pb),
                        "bes": chain_lengths(nse1, pb),
                        "uct_argmax_running": max_group(node, valid.any(-1)),
@@ -667,7 +738,8 @@ def phase_kernels(dev):
             f"k2b_l0={c['uct_argmax_running_l0']}")
         say(f"kernel-ms {tag} " + " ".join(
             f"{k}={v[1]:.5f}(plain {v[2]:.4f},bound {v[3][0]:.6f})"
-            for k, v in res.items()))
+            for k, v in res.items()) + " uct_argmax_tiles " + ",".join(
+                f"{k}={v:.5f}" for k, v in K2A[tag].items()))
     return results
 
 
@@ -1033,10 +1105,9 @@ def fa_cases(q, k, v, causal=True):
              "sdpa_ms": (lambda _: sdpa_fn(
                  q, k, v, is_causal=causal,
                  enable_gqa=k.shape[2] != q.shape[2]), {})}
-    if "flash_attention" in BEFORE:
-        out = torch.empty_like(q)
-        cases["before_ms"] = (lambda _: BEFORE["flash_attention"](
-            q, k, v, out, causal), {})
+    if BEFORE:
+        cases["before_ms"] = (lambda _: BEFORE[
+            "flash_attention"].flash_attention(q, k, v, causal=causal), {})
     return cases
 
 
@@ -1054,10 +1125,9 @@ def da_cases(q, ks, vs, vl):
              "sdpa_ms": (lambda a: sdpa_fn(
                  q, a[0], a[1], attn_mask=mask,
                  enable_gqa=ks[0].shape[2] != q.shape[2]), rot)}
-    if "decode_attention" in BEFORE:
-        out = torch.empty_like(q)
-        cases["before_ms"] = (lambda a: BEFORE["decode_attention"](
-            q, a[0], a[1], vl, out), rot)
+    if BEFORE:
+        cases["before_ms"] = (lambda a: BEFORE[
+            "decode_attention"].decode_attention(q, a[0], a[1], vl), rot)
     return cases
 
 
@@ -1071,6 +1141,67 @@ def da_bound(q, hkv, vl):
     keys, d = int(vl.sum()), q.shape[-1]
     return bound_ms(2 * (2 * q.numel() + 2 * keys * hkv * d)
                     + 4 * q.shape[0], 4 * d * q.shape[2] * keys, BF16_FLOPS)
+
+
+def f32_cases(rnd, h, hkv, d):
+    """The float32 K4's check cases, ``((q, k, v), kwargs)``: the knobs at
+    the LM's heads (q_offset, soft cap, non-causal), the smoke models'
+    D 16, D 20 (not a power of two), a ragged Sq over three query tiles,
+    ``seq_k_valid`` below Sk, and rows with no key (a negative q_offset),
+    which must give 0."""
+    f32 = torch.float32
+    out = []
+    for (b, sq, sk, hh, hk, dd, off, cap, causal, skv) in (
+            (2, 37, 37, h, hkv, d, 0, 0.0, True, None),
+            (2, 9, 30, h, hkv, d, 21, 4.0, True, None),
+            (1, 40, 50, h, hkv, d, 0, 0.0, False, None),
+            (3, 15, 15, 3, 1, 16, 0, 0.0, True, None),
+            (2, 70, 70, 4, 4, 20, 0, 0.0, True, None),
+            (1, 150, 150, 6, 2, 16, 0, 0.0, True, None),
+            (2, 130, 150, 6, 2, 20, 0, 2.0, False, 140),
+            (1, 200, 200, 3, 1, 64, 5, 0.0, True, 190),
+            (1, 5, 8, 2, 1, 16, -3, 0.0, True, None)):
+        x = (rnd(b, sq, hh, dd, dt=f32), rnd(b, sk, hk, dd, dt=f32),
+             rnd(b, sk, hk, dd, dt=f32))
+        out.append((x, dict(causal=causal, q_offset=off,
+                            logits_soft_cap=cap, seq_k_valid=skv)))
+    return out
+
+
+def f32_tile_flops(s: int, d: int) -> float:
+    """Flops the float32 K4 issues for one (sequence, head) of a causal
+    prefill of ``s`` positions: its 64 x 64 tiles at D padded to 16, 32, 64
+    or 128, less the warps it skips (rows past Sq, tiles above a warp's
+    rows) and the keys P V skips (past the warp's last row, to a multiple
+    of 4).  Set against the exact causal count, it shows how much of the
+    gap to the bound is tiling."""
+    dp = next(p for p in (16, 32, 64, 128) if d <= p)
+    flops = 0
+    for q0 in range(0, s, 64):
+        k_end = min(q0 + 64, s)
+        for k0 in range(0, k_end, 64):
+            for w in range(8):
+                last = q0 + 8 * w + 7
+                if q0 + 8 * w >= s or last < k0:
+                    continue
+                kn = min(64, k_end - k0, last - k0 + 1)
+                flops += 2 * 8 * dp * (64 + (kn + 3) // 4 * 4)
+    return flops
+
+
+def f32_row(q, k, v, err):
+    """The float32 K4 timed (causal) at one shape in turns with its plain
+    version, SDPA in float32 and (``--before``) the parent's kernel, with
+    the bound of the exact causal work: every q, k, v read and out written
+    once, 4 D flops per (row, key) pair at the float32 FFMA peak; and the
+    flops the kernel's tiling issues (``f32_tile_flops``)."""
+    b, s, h, d = q.shape
+    return dict(time_turns(fa_cases(q, k, v)), max_abs_err=err,
+                shape=[b, s, h, d],
+                bound=bound_ms(4 * (2 * q.numel() + 2 * k.numel()),
+                               4 * d * h * b * s * (s + 1) / 2, F32_FLOPS),
+                tile_flops=b * h * f32_tile_flops(s, d),
+                exact_flops=4 * d * h * b * s * (s + 1) / 2)
 
 
 def phase_attn_kernels(dev):
@@ -1115,28 +1246,17 @@ def phase_attn_kernels(dev):
         tm, max_abs_err=err_bf, bound=fa_bound(q, k), shape=[b, s, h, d])
     HOST["flash_attention_bf16"] = host_us(
         lambda _: FA.flash_attention(q, k, v))
-    # float32 (FMA kernel): small cases with the knobs, times at this shape
-    f32e = []
-    for (bb, sq, sk, off, cap, causal) in ((2, 37, 37, 0, 0.0, True),
-                                           (2, 9, 30, 21, 4.0, True),
-                                           (1, 40, 50, 0, 0.0, False)):
-        qs, ks, vs = rnd(bb, sq, h, d, dt=f32), rnd(bb, sk, hkv, d, dt=f32), \
-            rnd(bb, sk, hkv, d, dt=f32)
-        kw = dict(causal=causal, q_offset=off, logits_soft_cap=cap)
-        f32e.append(max_diff(FA.flash_attention(qs, ks, vs, **kw),
-                             FA.flash_attention(qs, ks, vs, impl="ref",
-                                                **kw)))
-    if max(f32e) > F32_TOL:
+    # float32 (register-blocked FFMA kernel): small cases with the knobs,
+    # times at this shape (the shapes of its main-path launches are checked
+    # and timed by phase_f32_paths)
+    f32e = max(max_diff(FA.flash_attention(*x, **kw),
+                        FA.flash_attention(*x, impl="ref", **kw))
+               for x, kw in f32_cases(rnd, h, hkv, d))
+    if f32e > F32_TOL:
         fail(f"flash_attention differs from its plain version in float32 "
-             f"by {max(f32e)} (> {F32_TOL})")
+             f"by {f32e} (> {F32_TOL})")
     qf, kf, vf = q.float(), k.float(), v.float()
-    cases = fa_cases(qf, kf, vf)
-    cases.pop("before_ms", None)
-    tm = time_turns(cases)
-    res["flash_attention"] = dict(
-        tm, max_abs_err=max(f32e), shape=[b, s, h, d],
-        bound=bound_ms(4 * (2 * qf.numel() + 2 * kf.numel()),
-                       4 * d * h * b * s * (s + 1) / 2, F32_FLOPS))
+    res["flash_attention"] = f32_row(qf, kf, vf, f32e)
     HOST["flash_attention"] = host_us(
         lambda _: FA.flash_attention(qf, kf, vf))
     del q, k, v, qf, kf, vf, got
@@ -1202,6 +1322,12 @@ def phase_attn_kernels(dev):
         f"{checks['flash_attention_bf16']['planted_share']:.1f}x); K3 bf16 "
         f"{100 * checks['decode_attention']['f32_limit_share']:.1f}% "
         f"(prefill [{b}, {s}], decode {n} x {s} keys over {nl} layers)")
+    fa = res["flash_attention"]
+    say(f"attn flash_attention f32 issues {fa['tile_flops'] / 1e9:.4f} "
+        f"GFLOP, {fa['tile_flops'] / fa['exact_flops']:.3f}x the exact "
+        f"causal count, at {fa['tile_flops'] / fa['ms'] / 1e9:.2f} TFLOP/s "
+        f"({100 * fa['tile_flops'] / fa['ms'] / 1e-3 / F32_FLOPS:.1f}% of "
+        f"the float32 peak)")
     sb = res["decode_attention"]["short_batch"]
     say(f"attn decode_attention short batch [{ns} x {ss} keys, "
         f"{sb['splits']} splits]: ms={sb['ms']:.5f},"
@@ -1212,6 +1338,75 @@ def phase_attn_kernels(dev):
         f"{100 * checks['flash_attention_bf16']['map_cache_share']:.1f}% of "
         f"its limit")
     return res, checks
+
+
+@contextlib.contextmanager
+def f32_census(tally: dict, path: str):
+    """Tallies the float32 K4's launches inside the span by ``(path, q
+    shape, k shape, knobs)``: ``FA.launch`` is wrapped for the span and
+    calls through, so its own counter counts as ever."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    launch = FA.launch
+
+    def counted(q, k, v, out, **kw):
+        if q.dtype == torch.float32:
+            key = (path, tuple(q.shape), tuple(k.shape),
+                   tuple(sorted(kw.items())))
+            tally[key] = tally.get(key, 0) + 1
+        return launch(q, k, v, out, **kw)
+    FA.launch = counted
+    try:
+        yield
+    finally:
+        FA.launch = launch
+
+
+def phase_f32_paths(dev, tally: dict, launched: int) -> dict:
+    """The float32 K4 at every shape and knob set of its main-path
+    launches (``f32_census`` over the float32 smoke paths): held against
+    its plain version within F32_TOL on random inputs of that shape, and
+    the shape with the most launches of each path timed (``f32_row``)."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    if sum(tally.values()) != launched:
+        fail(f"the census saw {sum(tally.values())} float32 flash_attention "
+             f"launches, its counter {launched}")
+    gen = torch.Generator(dev).manual_seed(13)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    out = dict(launches={}, shapes=[], timed={})
+    for (path, qs, ks, knobs), n in sorted(tally.items(),
+                                           key=lambda x: -x[1]):
+        kw = dict(knobs)
+        q, k, v = rnd(*qs), rnd(*ks), rnd(*ks)
+        err = max_diff(FA.flash_attention(q, k, v, **kw),
+                       FA.flash_attention(q, k, v, impl="ref", **kw))
+        if err > F32_TOL:
+            fail(f"flash_attention differs from its plain version in "
+                 f"float32 by {err} (> {F32_TOL}) at {path}'s {qs} / {ks} "
+                 f"{kw}")
+        out["launches"][path] = out["launches"].get(path, 0) + n
+        out["shapes"].append(dict(path=path, q=list(qs), k=list(ks), **kw,
+                                  launches=n, max_abs_err=err))
+        if path in out["timed"]:
+            continue
+        if not (kw["causal"] and kw["q_offset"] == 0
+                and not kw["logits_soft_cap"] and qs[1] == ks[1]
+                == kw["seq_k_valid"]):
+            fail(f"{path}'s busiest float32 flash_attention shape {qs} "
+                 f"{kw} is not a full causal prefill, which f32_row times")
+        out["timed"][path] = f32_row(q, k, v, err)
+    out["max_abs_err"] = max(x["max_abs_err"] for x in out["shapes"])
+    say("f32-paths flash_attention float32 launches " + " ".join(
+        f"{p}={n}" for p, n in out["launches"].items())
+        + f", {len(out['shapes'])} shapes held to the plain version (worst "
+        f"{out['max_abs_err']}); busiest: " + "; ".join(
+            f"{p} {r['shape']} Hkv {t['k'][2]} x{t['launches']} "
+            f"ms={r['ms']:.5f},plain_ms={r['plain_ms']:.5f},"
+            f"bound_ms={r['bound'][0]:.6f},sdpa_ms={r['sdpa_ms']:.5f}"
+            + (f",before_ms={r['before_ms']:.5f}" if "before_ms" in r
+               else "")
+            for p, r in out["timed"].items()
+            for t in [next(x for x in out["shapes"] if x["path"] == p)]))
+    return out
 
 
 def phase_lm_small(dev):
@@ -2056,11 +2251,12 @@ REC_TIMED = {"wkv6_step": "decode", "ssd_step": "decode",
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--before", metavar="DIR", help="a directory holding "
-                    "an earlier flash_attention.cu and decode_attention.cu "
-                    "(C entry points of the same names and arguments as "
-                    "the parent commit's): built with the parent's flags "
-                    "and timed in turns beside the kernels")
+    ap.add_argument("--before", metavar="DIR", help="the root of a "
+                    "checkout of an earlier commit (e.g. a git archive of "
+                    "the parent): its flash_attention, decode_attention "
+                    "and uct_select kernels are built by its own _build "
+                    "and timed through its own wrappers in turns beside "
+                    "the port's")
     before = ap.parse_args().before
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2078,15 +2274,22 @@ def main() -> int:
     rec_kern, rec_attn, rec_f32, rec_carry_, rec_cross = \
         phase_rec_kernels(dev)
     torch.cuda.synchronize()
+    census: dict = {}
     reset_launches()        # the small main paths (float32 smoke models)
     small = phase_small(dev)
-    lm_small = phase_lm_small(dev)
-    rec_small = phase_rec_small(dev)
+    with f32_census(census, "smollm-smoke decode"):
+        lm_small = phase_lm_small(dev)
+    with f32_census(census, "smoke engines (zamba2)"):
+        rec_small = phase_rec_small(dev)
     torch.cuda.synchronize()
     small_counts = all_launches()          # read just after them
     if small_counts["flash_attention"] == 0:
         fail("the float32 flash_attention kernel was not launched on the "
              "float32 smoke models' paths")
+    f32_paths = phase_f32_paths(dev, census, small_counts["flash_attention"])
+    attn["flash_attention"]["main_path"] = f32_paths
+    attn["flash_attention"]["max_abs_err"] = max(
+        attn["flash_attention"]["max_abs_err"], f32_paths["max_abs_err"])
     runs, counts = phase_full(dev)
     lm_run, lm_params = phase_lm_full(dev)
     lm_prof = phase_lm_profile(dev, lm_params)
@@ -2159,6 +2362,7 @@ def main() -> int:
               "rec_profile": rec_prof, "launches_total": total,
               "launches_small": small_counts, "host_us": HOST,
               "host_us_spread": HOST_SPREAD, "chains": CHAINS,
+              "k2a": K2A,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     write_out("chip_smoke.json", [json.dumps(detail, indent=1)])

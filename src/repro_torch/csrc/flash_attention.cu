@@ -9,11 +9,14 @@
 // (the public layout of the port's wrapper, read in place: no transpose or
 // padding copy).  GQA: head h reads kv head h / (H / Hkv).
 //
-// What bounds it on an H100: bytes.  At the main path's prefill shapes
-// (smollm-135m, 16 prompts x 276 positions, 9 heads of 64; zamba2-1.2b
-// [16, 166] and [1, 384], 32 heads of 128) a launch does 0.1-3 GFLOP of
-// causal QK^T and PV over 1-23 MB of bf16 q/k/v/out: ~0.1-3 us at the bf16
-// tensor-core peak against ~0.4-7 us at the memory rate.
+// What bounds it on an H100.  bfloat16: bytes.  At the main path's
+// prefill shapes (smollm-135m, 16 prompts x 276 positions, 9 heads of 64;
+// zamba2-1.2b [16, 166] and [1, 384], 32 heads of 128) a launch does
+// 0.1-3 GFLOP of causal QK^T and PV over 1-23 MB of bf16 q/k/v/out:
+// ~0.1-3 us at the bf16 tensor-core peak against ~0.4-7 us at the memory
+// rate.  float32: operations.  The same smollm prefill in float32 is 1.4
+// GFLOP of exact causal work over 14 MB, 21 us at the 67 TFLOP/s FFMA
+// peak against 4 us at the memory rate.
 //
 // bfloat16, fa_wgmma_kernel (D in {64, 80, 128}): one CTA of one warpgroup
 // (128 threads) per (64-row query tile, b * H + h).  One thread issues
@@ -36,11 +39,41 @@
 // maps are made on the host (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint) and kept for the last few pointers and shapes.
 //
-// float32, fa_kernel (any D <= 128; the smoke models, whose card == CPU
-// token streams go through it: wgmma has no float32 mode but TF32): the
-// products on the CUDA cores as float32 FMA loops, one block per (32-row
-// query tile, b * H + h), K / V tiles of 32 keys staged as float32 in
-// shared memory, a lane per key, online softmax in registers.
+// float32, fa_kernel<DP> (any D <= 128, padded to DP = 16, 32, 64 or 128;
+// the smoke models, whose card == CPU token streams go through it).  Both
+// products stay IEEE float32 FFMA on the CUDA cores: wgmma has no float32
+// mode but TF32, which would break those streams.  One block of 8 warps per
+// (b * H + h, 64-row query tile), the tiles with the most keys (the last,
+// under causal) launched first.  Q, then K / V tiles of 64 keys, reach
+// shared memory by cp.async (16-byte LDGSTS when D is a multiple of 4,
+// 4-byte otherwise; rows past the end zero-filled, columns past D zeroed
+// once), K / V double-buffered so that tile t + 1 is copied while tile t
+// is computed.  Rows are DP + 4 floats (an odd number of 16-byte chunks),
+// so the 16 keys a K load reads fall in distinct bank quads.  Register
+// blocking: warp w owns query rows 8w .. 8w + 7; lane (rg, cg) = (lane /
+// 16, lane % 16) holds a 4 x 4 tile of S (rows 8w + rg + 2i, keys cg +
+// 16j) and a 4 x DP/16 tile of O (the same rows).  S = Q K^T reads four
+// Q rows and four K rows as float4 per four steps of D, 8 LDS.128 for 64
+// FFMA, the Q reads broadcast across the 16 lanes of a row group.  The
+// online softmax runs on S in registers (log2 domain; a row's max over the
+// 16 lanes that hold it by 4 shuffles; l kept per lane and summed at the
+// end).  P goes through shared memory inside the warp (its rows are its
+// own, so a __syncwarp, not a block barrier), and O += P V reads P as
+// float4 along the keys (broadcast over the 16 lanes of a row group) and V
+// rows as float4 (the 16 lanes on consecutive columns), again 8 LDS.128
+// for 64 FFMA.  Masks run only in tiles that straddle seq_k_valid or the
+// causal diagonal (shifted by q_offset); tiles above it are never loaded,
+// a warp whose rows are all past Sq or above a tile skips it, and P V
+// stops at the warp's last visible key.  A row with no key writes 0.
+// Sizes: 64 x 64 tiles keep S's 16 and O's 4 x DP/16 accumulators plus the
+// float4 operands within 128 registers a thread (ptxas: 128 at DP <= 64, 0
+// spills), so two blocks (16 warps) are resident per SM; shared memory is
+// 5 tiles of 64 x (DP + 4) floats and P's 64 x 80, 105 KB at DP = 64 (two
+// blocks fit the SM's 228 KB).  DP = 128 takes 168 registers and 185 KB:
+// one block per SM.  At smollm's float32 prefill the tiles issue 1.16x
+// the exact causal flops: the diagonal tiles and a last query tile of 20
+// rows add work, but warps above a tile or past Sq skip it and P V stops
+// at the warp's last key.
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched
                      // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
@@ -50,21 +83,7 @@
 
 namespace {
 
-constexpr int BQ = 32;       // fa_kernel: query rows per block
-constexpr int BK = 32;       // fa_kernel: keys per tile (one per lane)
-constexpr int WARPS = 8;
-constexpr int ROWS = BQ / WARPS;
-constexpr int MAX_D = 128;
-constexpr int COLS = MAX_D / 32;
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
+constexpr int MAX_D = 128;   // fa_kernel's largest head dim
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores
@@ -509,112 +528,314 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// float32: FMA loops on the CUDA cores
+// float32: register-blocked FFMA on the CUDA cores, fed by cp.async
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(WARPS * 32)
-fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ out, int sq, int sk,
-          int seq_k, int h, int hkv, int d, int causal, int q_offset,
-          float scale, float cap) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [BQ][d]
-  float* ks = qs + BQ * d;                 // [BK][d + 1]
-  float* vs = ks + BK * (d + 1);           // [BK][d]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y, b = bh / h, hh = bh % h;
-  const int kvh = hh / (h / hkv);
-  const size_t q_row = (size_t)h * d, kv_row = (size_t)hkv * d;
-  const float* qb = q + ((size_t)b * sq) * q_row + (size_t)hh * d;
-  const float* kb = k + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
-  const float* vb = v + ((size_t)b * sk) * kv_row + (size_t)kvh * d;
+constexpr int FQ = 64;                // query rows per block (and keys a tile)
+constexpr int FWARPS = 8;             // 8 query rows a warp
+constexpr int FTHREADS = FWARPS * 32;
+constexpr int PLD = FQ + 16;          // P's row stride in floats
 
-  for (int e = tid; e < BQ * d; e += WARPS * 32) {
-    const int r = e / d, c = e % d;
-    qs[e] = (q0 + r < sq) ? qb[(size_t)(q0 + r) * q_row + c] : 0.0f;
-  }
-  float m[ROWS], l[ROWS], acc[ROWS][COLS];
+// D padded to DP (16, 32, 64 or 128); rows of DP + 4 floats in shared
+// memory, so that the 16 keys a K load reads lie in distinct bank quads
+// (a row is an odd number of 16-byte chunks).  Q, K x 2, V x 2 and P.
+template <int DP>
+struct F32Shape {
+  static constexpr int LD = DP + 4;
+  static constexpr int TILE = FQ * LD;
+  static constexpr int SMEM = (5 * TILE + FQ * PLD) * 4;
+  static constexpr int CPT = DP / 16;           // O columns a thread
+  static constexpr int CW = CPT < 4 ? CPT : 4;  // ... of them adjacent
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + FQ) of one head (src: its row 0, rows `stride`
+// floats apart) into a tile at shared address dst; rows at or past `rows`
+// arrive as zeros.  16-byte copies when D is a multiple of 4 (rows are
+// then 16-byte aligned): a thread takes one 16-byte column of the padded
+// row (its index modulo DP / 4, a power of two, so no division) in every
+// FTHREADS / (DP / 4)-th row, and the columns past D are left to the
+// zeroed padding; 4-byte copies otherwise.
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
+                                          size_t stride, int row0, int rows,
+                                          int d) {
+  constexpr int LD = F32Shape<DP>::LD;
+  if ((d & 3) == 0) {
+    constexpr int CPR = DP / 4;
+    const int c = threadIdx.x % CPR;
+    if (4 * c >= d) return;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.0f;
-  }
-  // keys a causal tile can see: < last query row's position + 1
-  int k_end = seq_k < sk ? seq_k : sk;
-  if (causal) {
-    const long long last = (long long)min(q0 + BQ, sq) - 1 + q_offset;
-    if (last + 1 < k_end) k_end = (int)(last + 1 > 0 ? last + 1 : 0);
-  }
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    for (int e = tid; e < BK * d; e += WARPS * 32) {
-      const int r = e / d, c = e % d;
-      const bool in = k0 + r < k_end;
-      const size_t off = (size_t)(k0 + r) * kv_row + c;
-      ks[r * (d + 1) + c] = in ? kb[off] : 0.0f;
-      vs[r * d + c] = in ? vb[off] : 0.0f;
+    for (int r = threadIdx.x / CPR; r < FQ; r += FTHREADS / CPR) {
+      const bool in = row0 + r < rows;
+      cp_async16(dst + 4u * (r * LD + 4 * c),
+                 in ? src + (size_t)(row0 + r) * stride + 4 * c : src,
+                 in ? 16 : 0);
     }
-    __syncthreads();
-    const int kj = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {       // unrolled: acc stays in registers
-      const int row = warp * ROWS + r, qi = q0 + row;
-      const bool keep = qi < sq && kj < k_end
-                        && (!causal || qi + q_offset >= kj);
-      float s = -INFINITY;
-      if (keep) {
-        float dot = 0.0f;
-        const float* qr = qs + row * d;
-        const float* kr = ks + lane * (d + 1);
-        for (int c = 0; c < d; ++c) dot += qr[c] * kr[c];
-        s = dot * scale;
-        if (cap > 0.0f) s = cap * tanhf(s / cap);
-      }
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = keep ? expf(s - m_new) : 0.0f;
-      const float corr = (m[r] == m_new) ? 1.0f : expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[r][c] *= corr;
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(~0u, p, j);
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          const int col = lane + 32 * c;
-          if (col < d) acc[r][c] += pj * vs[j * d + col];
-        }
-      }
-      m[r] = m_new;
-    }
-  }
-  float* ob = out + ((size_t)b * sq) * q_row + (size_t)hh * d;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qi = q0 + warp * ROWS + r;
-    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int col = lane + 32 * c;
-      if (qi < sq && col < d)
-        ob[(size_t)qi * q_row + col] = acc[r][c] * inv;
+  } else {
+    for (int e = threadIdx.x; e < FQ * d; e += FTHREADS) {
+      const int r = e / d, c = e - r * d;
+      const bool in = row0 + r < rows;
+      cp_async4(dst + 4u * (r * LD + c),
+                in ? src + (size_t)(row0 + r) * stride + c : src,
+                in ? 4 : 0);
     }
   }
 }
 
+template <int N>
+__device__ __forceinline__ void load_cols(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x; x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
+}
 
+__device__ __forceinline__ float at(const float4& t, int e) {
+  return e == 0 ? t.x : e == 1 ? t.y : e == 2 ? t.z : t.w;
+}
+
+// One block of 8 warps per (b * H + h, 64-row query tile), the tiles with
+// the most keys (the last, under causal) first.  Warp w owns query rows
+// 8w .. 8w + 7; lane (rg = lane / 16, cg = lane % 16) rows 8w + rg + 2i
+// (i < 4), keys cg + 16j (j < 4) of S, and columns of O (CPT of them).
+template <int DP>
+__global__ void __launch_bounds__(FTHREADS, F32Shape<DP>::MIN_BLOCKS)
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int sq,
+          int sk, int seq_k, int h, int hkv, int d, int causal, int q_offset,
+          float scale, float cap) {
+  using S = F32Shape<DP>;
+  constexpr int LD = S::LD, TILE = S::TILE, CPT = S::CPT, CW = S::CW;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                       // [FQ][LD]
+  float* ks = qs + TILE;                 // 2 x [FQ][LD]
+  float* vs = ks + 2 * TILE;             // 2 x [FQ][LD]
+  float* ps = vs + 2 * TILE;             // [FQ][PLD]
+  const uint32_t s_q = (uint32_t)__cvta_generic_to_shared(qs);
+  const uint32_t s_k = s_q + 4u * TILE, s_v = s_k + 8u * TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int kvh = hh / (h / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FQ;
+  const size_t q_row = (size_t)h * d, kv_row = (size_t)hkv * d;
+  const float* qb = q + (size_t)b * sq * q_row + (size_t)hh * d;
+  const float* kb = k + (size_t)b * sk * kv_row + (size_t)kvh * d;
+  const float* vb = v + (size_t)b * sk * kv_row + (size_t)kvh * d;
+
+  // keys this tile can see: below seq_k_valid and, causal, at or below
+  // the last query row's position
+  const int k_valid = seq_k < sk ? seq_k : sk;
+  int k_end = k_valid;
+  if (causal) {
+    const long long last = (long long)min(q0 + FQ, sq) - 1 + q_offset;
+    if (last + 1 < k_end) k_end = (int)(last + 1 > 0 ? last + 1 : 0);
+  }
+  const int n_tiles = (k_end + FQ - 1) / FQ;
+
+  if (d < DP)                            // columns past D read as zeros
+    for (int e = tid; e < 5 * FQ * (DP - d); e += FTHREADS)
+      fsm[(e / (DP - d)) * LD + d + e % (DP - d)] = 0.0f;
+  if (n_tiles > 0) {                     // Q with the first K / V tile
+    load_tile<DP>(s_q, qb, q_row, q0, sq, d);
+    load_tile<DP>(s_k, kb, kv_row, 0, k_end, d);
+    load_tile<DP>(s_v, vb, kv_row, 0, k_end, d);
+  }
+  cp_async_commit();
+
+  const int rg = lane >> 4, cg = lane & 15;
+  const int row0 = warp * 8 + rg;        // rows row0 + 2i
+  const int wlast = q0 + warp * 8 + 7;   // the warp's last query row
+  const bool live = q0 + warp * 8 < sq;
+  const float sl2 = scale * LOG2E;
+  float o[4][CPT], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * FQ;
+    if (t + 1 < n_tiles) {               // tile t + 1 in flight meanwhile
+      load_tile<DP>(s_k + 4u * ((t + 1) & 1) * TILE, kb, kv_row, k0 + FQ,
+                    k_end, d);
+      load_tile<DP>(s_v + 4u * ((t + 1) & 1) * TILE, vb, kv_row, k0 + FQ,
+                    k_end, d);
+    }
+    cp_async_commit();
+    cp_async_wait1();                    // tile t (and Q) landed
+    __syncthreads();
+    const float* kt = ks + (t & 1) * TILE;
+    const float* vt = vs + (t & 1) * TILE;
+    // a warp whose rows are all past Sq, or all above the tile (causal),
+    // has nothing to add
+    if (live && (!causal || (long long)wlast + q_offset >= k0)) {
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DP / 4; ++c) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (row0 + 2 * i) * LD
+                                                   + 4 * c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kt + (cg + 16 * j) * LD
+                                                   + 4 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+      // scores in the log2 domain, masked where the tile straddles a limit
+      const bool edge = k0 + FQ > k_valid
+                        || (causal && (long long)k0 + FQ - 1 > q0 + q_offset);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + row0 + 2 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = s[i][j];
+          x = cap > 0.0f ? cap * tanhf(x * scale / cap) * LOG2E : x * sl2;
+          if (edge) {
+            const int kj = k0 + cg + 16 * j;
+            if (kj >= k_valid || (causal && (long long)qi + q_offset < kj))
+              x = -INFINITY;
+          }
+          s[i][j] = x;
+        }
+      }
+      // online softmax: a row's max over the 16 lanes holding it; l stays
+      // a per-lane partial sum until the end
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, off));
+        const float mn = fmaxf(m[i], mx);
+        const float mu = mn == -INFINITY ? 0.0f : mn;   // no key yet
+        const float corr = exp2f(m[i] - mu);
+        m[i] = mn;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = exp2f(s[i][j] - mu);
+          s[i][j] = p;
+          sum += p;
+        }
+        l[i] = l[i] * corr + sum;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) o[i][c] *= corr;
+      }
+      // P through shared memory, inside the warp (its rows are its own)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ps[(row0 + 2 * i) * PLD + cg + 16 * j] = s[i][j];
+      __syncwarp();
+      // O += P V over the keys with data and, causal, at or below the
+      // warp's last row (P and V are 0 past them)
+      int kn = min(FQ, k_end - k0);
+      if (causal) kn = (int)min((long long)kn, (long long)wlast + q_offset
+                                                   - k0 + 1);
+#pragma unroll 2
+      for (int kc = 0; kc < kn; kc += 4) {
+        float4 pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(ps + (row0 + 2 * i) * PLD
+                                                   + kc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float vv[CPT];
+#pragma unroll
+          for (int mm = 0; mm < CPT / CW; ++mm) {
+            float part[CW];
+            load_cols<CW>(part, vt + (kc + e) * LD + mm * 16 * CW + cg * CW);
+#pragma unroll
+            for (int c = 0; c < CW; ++c) vv[mm * CW + c] = part[c];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = at(pv[i], e);
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+          }
+        }
+      }
+    }
+    __syncthreads();                     // K, V and P free for tile t + 2
+  }
+
+  float* ob = out + (size_t)b * sq * q_row + (size_t)hh * d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      li += __shfl_xor_sync(~0u, li, off);
+    const float inv = 1.0f / fmaxf(li, 1e-30f);
+    const int qi = q0 + row0 + 2 * i;
+    if (qi < sq) {
+#pragma unroll
+      for (int mm = 0; mm < CPT / CW; ++mm)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const int col = mm * 16 * CW + cg * CW + c;
+          if (col < d) ob[(size_t)qi * q_row + col] = o[i][mm * CW + c] * inv;
+        }
+    }
+  }
+}
+
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
                int sq, int sk, int seq_k, int h, int hkv, int d, int causal,
                int q_offset, float scale, float cap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)BQ * d + (size_t)BK * (d + 1)
-                                       + (size_t)BK * d);
-  static cudaError_t attr = cudaFuncSetAttribute(   // once, for MAX_D
-      fa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * (BQ * MAX_D + BK * (MAX_D + 1) + BK * MAX_D)));
+  constexpr int SMEM = F32Shape<DP>::SMEM;
+  static cudaError_t attr = cudaFuncSetAttribute(   // once per DP
+      fa_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((sq + BQ - 1) / BQ, b * h);
-  fa_kernel<<<grid, WARPS * 32, smem, stream>>>(
+  const long long tiles = ((long long)sq + FQ - 1) / FQ;
+  if (tiles > 65535 || (long long)b * h > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(b * h), (unsigned)tiles);
+  fa_kernel<DP><<<grid, FTHREADS, SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk,
       seq_k, h, hkv, d, causal, q_offset, scale, cap);
   return (int)cudaGetLastError();
@@ -632,8 +853,18 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   if (d < 1 || d > MAX_D || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
-  return launch_f32(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                    q_offset, scale, cap, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 16)
+    return launch_f32<16>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
+                          q_offset, scale, cap, s);
+  if (d <= 32)
+    return launch_f32<32>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
+                          q_offset, scale, cap, s);
+  if (d <= 64)
+    return launch_f32<64>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
+                          q_offset, scale, cap, s);
+  return launch_f32<128>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
+                         q_offset, scale, cap, s);
 }
 
 // bfloat16 on the tensor cores: D in {64, 80, 128}; q, k, v 16-byte

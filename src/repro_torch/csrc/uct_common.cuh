@@ -16,17 +16,32 @@
 #define UCT_SENTINEL 1e30f
 #define UCT_NEG_INF (-1e30f)
 
+// The exploitation term Q of either mode.
+__device__ __forceinline__ float uct_exploit(float n, float w, float infl,
+                                            float vl_weight, int wu) {
+  return wu ? w / fmaxf(n, 1.0f)
+            : (w - vl_weight * infl) / fmaxf(n + infl, 1.0f);
+}
+
+// UCT with log(max(n_p, 1)) taken by the caller (once per row).
+__device__ __forceinline__ float uct_score_log(float n, float w, float infl,
+                                               float log_pn, float cp,
+                                               float vl_weight, int wu) {
+  const float n_eff = n + infl;
+  const float s = uct_exploit(n, w, infl, vl_weight, wu)
+                  + cp * sqrtf(log_pn / fmaxf(n_eff, 1.0f));
+  return n_eff < 0.5f ? UCT_SENTINEL : s;
+}
+
 __device__ __forceinline__ float uct_score(float n, float w, float infl,
                                            float pn, float prior, float cp,
                                            float vl_weight, int wu,
                                            int puct) {
-  const float n_eff = n + infl;
-  const float q = wu ? w / fmaxf(n, 1.0f)
-                     : (w - vl_weight * infl) / fmaxf(n_eff, 1.0f);
   const float pnc = fmaxf(pn, 1.0f);
-  const float explore = puct ? prior * sqrtf(pnc) / (1.0f + n_eff)
-                             : sqrtf(logf(pnc) / fmaxf(n_eff, 1.0f));
-  const float s = q + cp * explore;
+  if (!puct) return uct_score_log(n, w, infl, logf(pnc), cp, vl_weight, wu);
+  const float n_eff = n + infl;
+  const float s = uct_exploit(n, w, infl, vl_weight, wu)
+                  + cp * (prior * sqrtf(pnc) / (1.0f + n_eff));
   return n_eff < 0.5f ? UCT_SENTINEL : s;
 }
 

@@ -7,57 +7,71 @@
 // What bounds it on an H100: neither bytes nor operations.  A Select level
 // scores lanes x A children (a few KB of operands, a few thousand flops), so
 // a launch is bound by launch latency and by a dependent chain.  For the
-// independent board the chain is one row's scan.  The running variant is a
-// walk: lane k's in-flight counts carry the picks of the earlier active
-// lanes with its parent id, so a step waits for the one before it.  Its
-// chain is as long as the largest group of lanes sharing a parent: all L
-// lanes on a level-0 board (every lane at the root), a few on deeper ones.
-// What the design does about it: one thread per row for the independent
-// board (no shared memory, no synchronisation).  For the running walk one
-// block per search root first copies the root's [L, A] board to shared
-// memory with coalesced loads, then links each active lane to the next
-// lane of its group (__match_any_sync inside a warp), and every group is
-// walked at once by its own sub-group of g = min(32, pow2(A)) threads,
-// spread over the A columns.  The counts are exact integers, so the float
-// sum with the in-flight count is the reference's.  With one column a
-// thread (A <= 32) the count lives in a register, and the IEEE score math
-// leaves the chain: a lane whose row equals its group head's (as on the
-// select path, where a group's lanes gather one node's children) looks its
-// score up in a table of the head's scores at every count the group can
-// reach, filled by the whole block before the walk.  A step is then one
-// shared-memory load and two warp reductions (REDUX: the largest score,
-// then the lowest column holding it).  No recount over earlier lanes, no
-// device memory inside the chain.  The TPU's A->128 /
-// rows->8 padding is not carried over: rows and columns are bounds-checked
+// independent board the chain is one row's scores and one first-max.  The
+// running variant is a walk: lane k's in-flight counts carry the picks of
+// the earlier active lanes with its parent id, so a step waits for the one
+// before it.  Its chain is as long as the largest group of lanes sharing a
+// parent: all L lanes on a level-0 board (every lane at the root), a few on
+// deeper ones.
+// What the design does about it.  The independent board: a row is scored
+// by a sub-group of g = group_width(A) consecutive threads, 32 / g rows to
+// a warp (2 at A = 16), thread gl holding the columns gl, gl + g, ...: the
+// warp's loads are consecutive addresses, every column is scored at once,
+// log(max(n_p, 1)) is taken once per row, and the first-max is the two
+// REDUX of group_best.  At the timed board (4,096 rows x A 16) that is 512
+// blocks of 128 threads, against 32 blocks of a thread per row before.  The
+// count planes (N, the mode's in-flight plane, n_p) are read in their own
+// type, int32 (the arena's) or float32, and converted in registers as
+// .to(torch.float32) converts them, so the wrapper copies nothing; only the
+// mode's in-flight plane is passed.
+// The running walk: one block per search root first copies the root's
+// [L, A] board to shared memory with coalesced loads, then links each
+// active lane to the next lane of its group (__match_any_sync inside a
+// warp), and every group is walked at once by its own sub-group of g
+// threads, spread over the A columns.  The counts are exact integers, so
+// the float sum with the in-flight count is the reference's.  With one
+// column a thread (A <= 32) the count lives in a register, and the IEEE
+// score math leaves the chain: a lane whose row equals its group head's (as
+// on the select path, where a group's lanes gather one node's children)
+// looks its score up in a table of the head's scores at every count the
+// group can reach, filled by the whole block before the walk.  A step is
+// then one shared-memory load and two warp reductions (REDUX: the largest
+// score, then the lowest column holding it).  No recount over earlier
+// lanes, no device memory inside the chain.  The TPU's A->128 / rows->8
+// padding is not carried over: rows and columns are bounds-checked
 // instead.
 #include <cuda_runtime.h>
 
 #include "uct_common.cuh"
 
-// One thread per row of the [R, A] board; an all-invalid row returns 0.
-extern "C" __global__ void uct_tiles_kernel(
-    const float* __restrict__ n, const float* __restrict__ w,
-    const float* __restrict__ vl, const float* __restrict__ o,
-    const float* __restrict__ pn, const unsigned char* __restrict__ valid,
-    int* __restrict__ out, int rows, int a, float cp, float vl_weight,
-    int wu) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
+// A sub-group of g threads per row of the [R, A] board; an all-invalid row
+// returns 0.  C: the count planes' type (int or float).
+template <typename C>
+__global__ void __launch_bounds__(128) uct_tiles_kernel(
+    const C* __restrict__ n, const float* __restrict__ w,
+    const C* __restrict__ infl, const C* __restrict__ pn,
+    const unsigned char* __restrict__ valid, int* __restrict__ out,
+    int rows, int a, float cp, float vl_weight, int wu, int g) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = t / g, gl = t & (g - 1);
+  if (r >= rows) return;                 // a whole sub-group at once
   const size_t base = (size_t)r * a;
-  const float* infl = wu ? o : vl;
+  const float log_pn = logf(fmaxf((float)pn[r], 1.0f));
   float best = 0.0f;
-  int idx = 0;
-  for (int j = 0; j < a; ++j) {
-    const size_t e = base + j;
-    const float s = valid[e] ? uct_score(n[e], w[e], infl[e], pn[r], 0.0f,
-                                         cp, vl_weight, wu, 0)
-                             : UCT_NEG_INF;
-    if (j == 0 || s > best) {
+  int idx = -1;
+  for (int j = gl; j < a; j += g) {      // first max over this thread's
+    const size_t e = base + j;           // columns; every load issued
+    const bool ok = valid[e];            // before the mask is read
+    const float sc = uct_score_log((float)n[e], w[e], (float)infl[e],
+                                   log_pn, cp, vl_weight, wu);
+    const float s = ok ? sc : UCT_NEG_INF;
+    if (idx < 0 || s > best) {
       best = s;
       idx = j;
     }
   }
-  out[r] = idx;
+  const int pick = group_best(best, idx, idx >= 0, group_mask(g));
+  if (gl == 0) out[r] = pick;
 }
 
 // One block per search root, the group-parallel running walk.  Lane k
@@ -270,16 +284,26 @@ extern "C" __global__ void __launch_bounds__(1024) uct_running_kernel(
   }
 }
 
-extern "C" int uct_argmax_tiles(const float* n, const float* w,
-                                const float* vl, const float* o,
-                                const float* pn, const unsigned char* valid,
-                                int* out, int rows, int a, float cp,
-                                float vl_weight, int wu, void* stream) {
+// n, infl (the mode's in-flight plane) and pn are int32 when counts_int,
+// else float32.
+extern "C" int uct_argmax_tiles(const void* n, const float* w,
+                                const void* infl, const void* pn,
+                                const unsigned char* valid, int* out,
+                                int rows, int a, float cp, float vl_weight,
+                                int wu, int counts_int, void* stream) {
   if (rows == 0) return 0;
-  const int threads = 128;
-  const int blocks = (rows + threads - 1) / threads;
-  uct_tiles_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      n, w, vl, o, pn, valid, out, rows, a, cp, vl_weight, wu);
+  const int threads = 128, g = group_width(a);
+  if ((long long)rows * g > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = ((long long)rows * g + threads - 1) / threads;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (counts_int)
+    uct_tiles_kernel<int><<<(unsigned)blocks, threads, 0, st>>>(
+        (const int*)n, w, (const int*)infl, (const int*)pn, valid, out, rows,
+        a, cp, vl_weight, wu, g);
+  else
+    uct_tiles_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
+        (const float*)n, w, (const float*)infl, (const float*)pn, valid, out,
+        rows, a, cp, vl_weight, wu, g);
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,9 @@ and ``logits_soft_cap``, which the Pallas path drops.
 
 Two kernels, by dtype: bfloat16 goes to ``fa_wgmma_kernel`` (both
 products on the tensor cores, P rounded to bf16 before PV as the Pallas
-kernel rounds it; head dim 64, 80 or 128), float32 to ``fa_kernel`` (FMA
-loops, head dim <= 128).  Bound on an H100: bytes; see the source note.
+kernel rounds it; head dim 64, 80 or 128; bound on an H100: bytes),
+float32 to ``fa_kernel`` (register-blocked IEEE float32 FFMA fed by
+cp.async, head dim <= 128; bound: operations).  See the source note.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel of its dtype, and a shape it does not take, a failed build or a

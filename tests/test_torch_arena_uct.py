@@ -195,3 +195,24 @@ def test_uct_argmax_sentinel_ties_first_max(vl_mode, r, a):
     got = _port_argmax(n, w, z, pn, **kw)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.argmax(n == 0.0, axis=-1))
+
+
+@pytest.mark.parametrize("vl_mode", ["loss", "wu"])
+@pytest.mark.parametrize("r,a,parents", [(7, 4, None), (64, 130, None),
+                                         (12, 4, 3)])
+def test_uct_argmax_int32_count_planes(r, a, parents, vl_mode):
+    """The arena's dtypes: N, the in-flight planes and n_p int32 (the
+    plain version converts them as the kernel does), ``child_o`` the same
+    plane as ``child_vl`` as the select path passes it, and rows of
+    sentinel ties; decisions equal the JAX reference's and its Pallas
+    kernel's on the same int32 planes."""
+    n, w, vl, o, valid = _board(r * 17 + a, r, a, parents)
+    n, vl = n.astype(np.int32), vl.astype(np.int32)
+    n[::3], vl[::3] = 0, 0
+    pn = (n.sum(-1) + 1 + vl.sum(-1)).astype(np.int32)
+    kw = dict(cp=1.4, valid=valid, child_o=vl, vl_mode=vl_mode)
+    want = _both_jax(juo.uct_argmax, jnp.asarray(n), jnp.asarray(w),
+                     jnp.asarray(vl), jnp.asarray(pn),
+                     **{**kw, "valid": jnp.asarray(valid),
+                        "child_o": jnp.asarray(vl)})
+    np.testing.assert_array_equal(_port_argmax(n, w, vl, pn, **kw), want)

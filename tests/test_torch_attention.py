@@ -50,6 +50,8 @@ def _t(x, dtype=torch.float32):
     (1, 96, 160, 2, 2, 128, False),     # cross-length, non-causal
     (2, 45, 45, 6, 2, 16, True),        # GQA 3, ragged length
     (1, 37, 53, 3, 1, 32, False),
+    (2, 70, 70, 4, 4, 20, True),        # D 20, not a power of two
+    (3, 15, 15, 3, 1, 16, True),        # the smollm smoke prefill
 ])
 def test_flash_plain_matches_pallas_and_ref(b, sq, sk, h, hkv, d, causal):
     q, k, v = _rand(0, (b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))

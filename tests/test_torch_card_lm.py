@@ -100,6 +100,43 @@ def test_attention_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,off,cap,skv", [
+    (3, 15, 15, 3, 1, 16, True, 0, 0.0, None),     # the smoke prefill
+    (2, 150, 150, 6, 2, 16, True, 0, 0.0, None),   # 3 query tiles, ragged
+    (2, 70, 90, 4, 4, 20, True, 20, 0.0, None),    # D 20, q_offset
+    (1, 130, 200, 6, 2, 20, False, 0, 3.0, 170),   # non-causal, kv padding
+    (2, 65, 65, 3, 1, 100, True, 0, 0.0, 60),      # D 100, seq_k_valid
+    (1, 100, 100, 6, 2, 100, False, 0, 0.0, None),
+    (1, 9, 12, 3, 1, 16, True, -4, 0.0, None),     # rows with no key
+    (1, 40, 40, 3, 3, 20, True, 0, 0.0, 0),        # no key at all
+    (2, 28, 28, 4, 4, 16, True, 0, 0.0, None),     # zamba2-smoke search
+    (1, 9, 9, 4, 4, 16, True, 0, 0.0, None),       # zamba2-smoke prefill
+])
+def test_flash_f32_kernel_matches_plain(b, sq, sk, h, hkv, d, causal, off,
+                                        cap, skv):
+    """The float32 register-blocked K4 against its plain version within
+    1e-5 (the order of the float32 sums), through every knob it takes; a
+    row with no key to attend gives 0."""
+    dev = _card()
+    q, k, v = _rand(60 + d, torch.float32, dev, (b, sq, h, d),
+                    (b, sk, hkv, d), (b, sk, hkv, d))
+    kw = dict(causal=causal, q_offset=off, logits_soft_cap=cap,
+              seq_k_valid=skv)
+    n = tfa.launches["flash_attention"]
+    got = tfa.flash_attention(q, k, v, **kw)
+    assert tfa.launches["flash_attention"] == n + 1
+    want = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    torch.testing.assert_close(got.cpu(), want, atol=F32_TOL, rtol=F32_TOL)
+    empty = torch.zeros(sq, dtype=torch.bool)
+    if causal and off < 0:
+        empty[:-off] = True
+    if skv == 0:
+        empty[:] = True
+    got = got.cpu()[:, empty]
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wave_select", ["mega", "lockstep"])
 def test_decode_on_card_equals_cpu(wave_select):
     """The card (flash / flash-decode / search-wave kernels) emits the

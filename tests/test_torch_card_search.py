@@ -1,6 +1,7 @@
-"""On the card: the search kernels (K2b ``uct_running_kernel``, K1
-``sw_se_kernel`` / ``sw_bes_kernel`` / ``sw_b_kernel``) against their plain
-versions run on the CPU from the same inputs.
+"""On the card: the search kernels (K2a ``uct_tiles_kernel``, K2b
+``uct_running_kernel``, K1 ``sw_se_kernel`` / ``sw_bes_kernel`` /
+``sw_b_kernel``) against their plain versions run on the CPU from the same
+inputs.
 
 Every test here is marked ``cuda`` and skips without a card; the file
 imports no JAX, so it runs on a machine that has none:
@@ -10,7 +11,9 @@ float planes (``value``, ``prior``) bit-equal: the kernels add a node's
 value contributions in lane order, the order of the plain version's
 scatter-add on the CPU.
 
-K2b boards are made with numpy from a seed: every lane on one parent,
+K2a boards are made with numpy from a seed: A 1-130, 1-4,096 rows, int32
+and float32 count planes, finished rows and sentinel ties.  K2b boards are
+made with numpy from a seed: every lane on one parent,
 every parent distinct, and parents drawn from a few; finished lanes (all
 columns invalid), rows whose every column scores the must-explore
 sentinel, and rows of exact score ties.  K1 runs on P-game arenas
@@ -130,6 +133,72 @@ def test_running_walk_with_counts_in_device_scratch():
     board = _board(5, 2, 6, 70_000, "one")
     got, want = _running_both(dev, board, "loss")
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K2a: the independent argmax
+# ---------------------------------------------------------------------------
+def _tiles_board(seed, rows, a):
+    """``[rows, a]`` int32 count planes (N, vl, O, n_p), float32 W and a
+    valid mask, with finished rows (every column invalid) and rows whose
+    every column scores the must-explore sentinel."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 40, (rows, a)).astype(np.int32)
+    vl = rng.integers(0, 3, (rows, a)).astype(np.int32)
+    o = rng.integers(0, 4, (rows, a)).astype(np.int32)
+    w = (rng.normal(size=(rows, a)) * 3).astype(np.float32)
+    pn = rng.integers(0, 300, rows).astype(np.int32)
+    fresh = rng.random(rows) < 0.2
+    n[fresh], vl[fresh], o[fresh] = 0, 0, 0
+    valid = rng.random((rows, a)) < 0.8
+    valid[rng.random(rows) < 0.15] = False
+    return [torch.from_numpy(x) for x in (n, w, vl, o, pn, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("a", [1, 2, 16, 33, 130])
+def test_tiles_argmax_equals_plain(rows, a):
+    """K2a's picks equal its plain version's on the CPU, in both modes,
+    with int32 and float32 count planes, and with ``child_o`` the same
+    tensor as ``child_vl``; a finished row picks 0, a row of sentinel ties
+    its lowest column."""
+    dev = _card()
+    n, w, vl, o, pn, valid = _tiles_board(rows * 1000 + a, rows, a)
+    for counts in (torch.int32, torch.float32):
+        c = [x.to(counts) for x in (n, vl, o, pn)]
+        for mode in ("loss", "wu"):
+            for infl in (c[2], c[1]):
+                kw = dict(cp=0.7, vl_weight=1.0, vl_mode=mode)
+                want = U.uct_argmax(c[0], w, c[1], c[3], valid=valid,
+                                    child_o=infl, **kw)
+                before = U.launches["uct_argmax_tiles"]
+                got = U.uct_argmax(c[0].to(dev), w.to(dev), c[1].to(dev),
+                                   c[3].to(dev), valid=valid.to(dev),
+                                   child_o=infl.to(dev), **kw)
+                assert U.launches["uct_argmax_tiles"] == before + 1
+                assert torch.equal(got.cpu(), want), (counts, mode)
+                assert (want[~valid.any(-1)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_tiles_argmax_copies_no_int32_plane(monkeypatch):
+    """On the arena's int32 planes the wrapper hands the kernel the
+    tensors themselves: no float32 copy is made."""
+    dev = _card()
+    n, w, vl, o, pn, valid = (x.to(dev) for x in _tiles_board(3, 64, 16))
+    seen = []
+    real = U.launch_tiles
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+    monkeypatch.setattr(U, "launch_tiles", spy)
+    U.uct_argmax(n, w, vl, pn, cp=0.7, valid=valid, child_o=vl)
+    (args,) = seen
+    assert [t.data_ptr() for t in args[:5]] == [
+        x.data_ptr() for x in (n, w, vl, pn, valid)]
+    assert args[0].dtype == args[2].dtype == args[3].dtype == torch.int32
 
 
 # ---------------------------------------------------------------------------
