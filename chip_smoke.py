@@ -45,7 +45,12 @@ Phases; each prints one line and any mismatch or error exits non-zero:
   6. small    P-game ``search_batch``, LM ``mcts_decode_batch`` and the
               serving engine (rwkv6 / zamba2 smoke configs, greedy and
               mcts), float32, through the kernels on the card equal the
-              plain versions on the CPU; the float32 K4's main path:
+              plain versions on the CPU; the cross-token carries
+              (``kv_splice``, ``tree_reuse``, both) on smollm-smoke's
+              searcher and ``mcts_decode_batch`` (tokens and carried
+              integer planes) and the mcts engine with both carries on
+              smollm / rwkv6 / zamba2 smoke, card == CPU (line
+              ``carry-small``); the float32 K4's main path:
               its launches tallied by path, shape and knobs, each shape
               held to the plain version, each path's busiest timed
   7. full     the P-game main path at full size (FULL below): pipeline /
@@ -55,7 +60,17 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               engine at full width on rwkv6-1.6b and zamba2-1.2b, greedy
               (REC_GREEDY) and mcts (REC_MCTS); invariants, launch counts
               against those each path implies, playouts/s, tokens/s; K1b
-              against its plain version at the LM path's shapes
+              against its plain version at the LM path's shapes; the LM
+              path with the carries (``ServingEngine(decode="mcts")``,
+              ``kv_splice`` and ``kv_splice`` + ``tree_reuse``): launch
+              counts per admission and per token, the first token
+              against the cold run's, the carried logits after each
+              commit against a prefill of the longer prefix (a commit
+              planted one position off must fail that), the arena
+              invariants per token, K1b on the rerooted arena after
+              token 1; tokens/s, TTFT, the batched reroot's and the
+              commit step's times (lines ``lm-carry``,
+              ``lm-carry-reroot``)
   8. profile  device busy share and time by kernel of the fused P-game
               runs, one LM token's search and one engine step of each
               recurrent run (torch.profiler), tables in
@@ -1441,14 +1456,19 @@ def lm_buffers(cfg, lm, dev):
         torch.from_numpy(lens).to(dev)
 
 
-def lm_bes_check(cfg, params, buf, lens, dc, dev) -> dict:
+def lm_bes_check(cfg, params, buf, lens, dc, dev, warm=None) -> dict:
     """K1b at the LM path's shapes: the 16 roots' pipelined search (PUCT
     rows, A=4, 16 lanes, depth 8, 66-row arena) advanced LM_BES_TICKS ticks
     by the plain path, then one Backup -> Expand -> Select tick by the
     kernel and by its plain version on clones of that snapshot.  Integer
     planes and states must be equal, ``value`` / ``prior`` within
-    VALUE_RTOL.  Returns the largest float difference and the kernel's and
-    the plain version's times on that snapshot (in turns)."""
+    VALUE_RTOL.  With ``warm = (arena, alive)`` the search starts from
+    that carried arena (``tree_reuse``: its capacity, ``next_free > 1``),
+    and the clones share the state planes (~13 GB of KV caches a copy;
+    neither side writes them).  Returns the largest float difference, the
+    kernel's and the plain version's times on that snapshot (in turns)
+    and the snapshot's largest ``next_free``."""
+    import dataclasses
     from repro_torch.core import stages as S
     from repro_torch.core.tree import init_tree
     from repro_torch.kernels.search_wave import ops as W
@@ -1457,7 +1477,13 @@ def lm_bes_check(cfg, params, buf, lens, dc, dev) -> dict:
     sp = dc.search_config().params
     dom = _domain(cfg, params, buf, dc, prompt_len=lens)
     n_waves = -(-LM_FULL["budget"] // lanes)
-    tree = init_tree(dom, n_waves * lanes + 2, root_state=dom.root_state())
+    nodes, clone = n_waves * lanes + 2, clone_tree
+    if warm is not None:
+        nodes, clone = warm[0].max_nodes, clone_planes
+        dom = dataclasses.replace(dom, root_arena=warm[0],
+                                  root_arena_alive=warm[1])
+    tree = init_tree(dom, nodes, root_state=dom.root_state())
+    dom = dataclasses.replace(dom, root_arena=None, root_arena_alive=None)
     se = S.empty_selection(sp, b, lanes, dev)
     ep = S.empty_expansion(sp, tree, lanes)
     pb = S.empty_playout(sp, b, lanes, dom.num_actions, dev)
@@ -1468,9 +1494,9 @@ def lm_bes_check(cfg, params, buf, lens, dc, dev) -> dict:
     del ep
     if not (sp.puct and bool(pb["valid"].all()) and bool(se["valid"].all())):
         fail("lm bes: the snapshot has no full PUCT backup and expand wave")
-    t1, nse1, es1 = W.bes(clone_tree(tree), sp, lanes, True, se, pb,
+    t1, nse1, es1 = W.bes(clone(tree), sp, lanes, True, se, pb,
                           impl="cuda")
-    t2, nse2, es2 = W.bes(clone_tree(tree), sp, lanes, True, se, pb,
+    t2, nse2, es2 = W.bes(clone(tree), sp, lanes, True, se, pb,
                           impl="ref")
     torch.cuda.synchronize()
     err = compare_trees("lm bes", t1, t2)
@@ -1485,7 +1511,8 @@ def lm_bes_check(cfg, params, buf, lens, dc, dev) -> dict:
                                        se_valid, pbk), fresh),
         "bes/plain": (lambda t: W.bes(t, sp, lanes, True, se, pb,
                                       impl="ref"), fresh)})
-    return {"max_abs_err": err, "ms": tm["bes"], "plain_ms": tm["bes/plain"]}
+    return {"max_abs_err": err, "ms": tm["bes"], "plain_ms": tm["bes/plain"],
+            "next_free": int(tree.next_free.max())}
 
 
 def phase_lm_full(dev):
@@ -1548,6 +1575,7 @@ def phase_lm_full(dev):
     if first.tolist() != [t[0] for t in toks]:
         fail("lm full: the kept search chose other first tokens")
     nodes_mean = float(cons["nodes"].float().mean())
+    first_planes = {f: getattr(tree, f).cpu() for f in INT_PLANES}
     del res, tree
     # prefill-then-step == a prefill of the prompt one token longer
     s = lm_max_len(lm)
@@ -1595,7 +1623,7 @@ def phase_lm_full(dev):
         f"{planted['late']} late, {planted['early']} early); bes at these "
         f"shapes == plain (max float diff {bes_err}), {lm_bes['ms']:.5f} ms "
         f"(plain {lm_bes['plain_ms']:.3f})")
-    return run, params
+    return run, params, first_planes
 
 
 def phase_lm_profile(dev, params):
@@ -1612,6 +1640,495 @@ def phase_lm_profile(dev, params):
         lambda: step(buf, lens))
     write_out("profile_lm.txt", table)
     return summary or {}
+
+
+# ---------------------------------------------------------------------------
+# the cross-token serving carry: kv_splice and tree_reuse
+# ---------------------------------------------------------------------------
+CARRIES = {"splice": dict(kv_splice=True), "reuse": dict(tree_reuse=True),
+           "both": dict(kv_splice=True, tree_reuse=True)}
+CARRY_REPS = 5    # the reroot's and the commit step's timed calls (median)
+
+
+def carry_trace(cfg, params, prompts, dc, device, n_new) -> list:
+    """The ``ReusableSearcher`` threaded over ``n_new`` tokens: each
+    token's choices and the carried arena's integer planes after it."""
+    import numpy as np
+    from repro_torch.serving import make_batched_searcher
+    from repro_torch.serving.mcts_decode import _pad_prompts
+    buf, lens = _pad_prompts(prompts, n_new)
+    rows = np.arange(len(prompts))
+    s = make_batched_searcher(cfg, params, dc, len(prompts), device=device)
+    c = s.init_carry(buf.shape[1])
+    for i in rows:
+        c = s.admit(c, int(i), buf[i], int(lens[i]))
+    out = []
+    for t in range(n_new):
+        toks, c = s.step(buf, lens, t, c)
+        toks = toks.cpu()
+        ar = c.get("arena")
+        out.append((toks.tolist(), {} if ar is None else {
+            f: getattr(ar, f).cpu() for f in INT_PLANES}))
+        buf[rows, lens] = toks.numpy()
+        lens = lens + 1
+    return out
+
+
+def phase_carry_small(dev):
+    """The carries on the float32 smoke configs: on smollm-smoke the
+    searcher (``kv_splice``, ``tree_reuse``, both) and ``mcts_decode_batch``
+    make the CPU's tokens on the card, the carried integer planes equal
+    after every token; the mcts engine with both carries on smollm-smoke,
+    rwkv6-smoke and zamba2-smoke emits the CPU's token streams."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.base import get_family
+    from repro_torch.serving import mcts_decode_batch
+    cfg = get_smoke_config(LM_ARCH)
+    params = get_family(cfg).init(cfg, seed=LM_SEED, device="cpu")
+    prompts = lm_prompts(cfg.vocab_size, LM_SMALL)
+    n_new = LM_SMALL["new_tokens"]
+    out = {}
+    for name, knobs in CARRIES.items():
+        dc = lm_dcfg(LM_SMALL, wave_select="mega", **knobs)
+        card, cpu = (carry_trace(cfg, params, prompts, dc, d, n_new)
+                     for d in (dev, "cpu"))
+        for t, ((tk, pk), (tc, pc)) in enumerate(zip(card, cpu)):
+            if tk != tc:
+                fail(f"carry small {name} token {t}: card {tk} != CPU {tc}")
+            for f in pc:
+                if not torch.equal(pk[f], pc[f]):
+                    fail(f"carry small {name} token {t}: carried plane {f} "
+                         "differs between the card and the CPU")
+        toks = mcts_decode_batch(cfg, params, prompts, n_new, dc, device=dev)
+        if toks != [list(x) for x in zip(*(tk for tk, _ in card))]:
+            fail(f"carry small {name}: mcts_decode_batch {toks} != the "
+                 "searcher's tokens")
+        out[name] = toks
+    for arch in (LM_ARCH,) + REC_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = get_family(cfg).init(cfg, seed=REC_SEED, device="cpu")
+        streams = []
+        for device in (dev, "cpu"):
+            eng, reqs = rec_engine(cfg, params, REC_SMALL, "mcts", device,
+                                   **CARRIES["both"])
+            eng.run_until_drained()
+            streams.append({r.uid: r.out_tokens for r in reqs})
+        if streams[0] != streams[1]:
+            fail(f"carry small {arch} engine: card {streams[0]} != CPU "
+                 f"{streams[1]}")
+        out[f"engine/{arch}"] = streams[0]
+    say(f"carry-small card == CPU: {LM_ARCH} smoke searcher and "
+        f"mcts_decode_batch ({len(prompts)} ragged prompts x {n_new} "
+        "tokens; kv_splice, tree_reuse, both; tokens and carried integer "
+        f"planes), mcts engine with both carries on {LM_ARCH}, "
+        f"{', '.join(REC_ARCHS)} smoke ({REC_SMALL['requests']} requests "
+        f"over {REC_SMALL['max_batch']} slots)")
+    return out
+
+
+def carried_visits(carry) -> torch.Tensor:
+    """[B] visits of the child each slot committed, where the carry makes
+    it the next root (alive, child expanded), else 0."""
+    ar, act = carry["arena"], carry["action"].long()
+    child = ar.children[:, 0].gather(1, act[:, None])[:, 0]
+    n = ar.visits.gather(1, child.clamp_min(0).long()[:, None])[:, 0]
+    return torch.where(carry["alive"] & (child >= 0), n, 0)
+
+
+def fresh_logits(cfg, params, eng, extra: int):
+    """Next-token logits of a prefill of every slot's current prefix."""
+    from repro_torch.models.base import seq_prefill
+    dev = eng.device
+    full = torch.zeros((eng.prefix_buf.shape[0],
+                        eng.prefix_buf.shape[1] + extra), dtype=torch.int32,
+                       device=dev)
+    full[:, :eng.prefix_buf.shape[1]] = torch.from_numpy(eng.prefix_buf)
+    lens = torch.from_numpy(eng.prefix_len).to(dev)
+    return seq_prefill(cfg, params, full, lens)[0]
+
+
+def event_ms(fn, reps=CARRY_REPS, setup=None):
+    """Median device time of ``fn(setup())`` between two CUDA events, and
+    the median host time of the call (no synchronise inside), ms."""
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        t0 = time.perf_counter()
+        out = fn(arg)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+        del out, arg
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+@contextlib.contextmanager
+def attn_capture(calls: list, keep):
+    """Keeps the operands and knobs of every K3 / K4 wrapper call inside
+    the span for which ``keep(name, q, args)`` holds, and a copy of its
+    output: the wrappers are wrapped for the span and call through, so
+    their counters count as ever.  The operands are kept as they are, not
+    copied: each is a fresh activation or, for K3, a layer slice of a
+    cache that no later call of the span writes (a change would show as a
+    disagreement in the check, never hide one)."""
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    mods = ((DA, "decode_attention"), (FA, "flash_attention"))
+    fns = [getattr(m, n) for m, n in mods]
+    def wrap(name, fn):
+        def call(q, *args, **kw):
+            out = fn(q, *args, **kw)
+            if keep(name, q, args):
+                calls.append((q, args, kw, out.clone()))
+            return out
+        return call
+    for (m, n), fn in zip(mods, fns):
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(mods, fns):
+            setattr(m, n, fn)
+
+
+def carry_k4_check(what, calls) -> dict:
+    """The bf16 K4's launches of the admission prefills (``attn_capture``),
+    each output held to ``rounded_p_limit`` on its own operands and knobs
+    and set beside the plain version in bf16; on the first, a planted
+    fault (the diagonal one position late) must read above the limit."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    out = {"calls": len(calls), "limit_share": 0.0, "max_abs_err": 0.0,
+           "shapes": sorted({str(list(q.shape)) for q, *_ in calls})}
+    for i, (q, (k, v), kw, got) in enumerate(calls):
+        planted = None if i else FA.flash_attention(
+            q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) + 1))
+        r = rounded_check(what, got, q, k, v, planted=planted, **kw)
+        out["limit_share"] = max(out["limit_share"], r["limit_share"])
+        out.setdefault("planted_share", r.get("planted_share"))
+        out["max_abs_err"] = max(out["max_abs_err"], max_diff(
+            got, FA.flash_attention(q, k, v, impl="ref", **kw)))
+    return out
+
+
+def carry_k3_check(what, calls) -> dict:
+    """K3's launches of one commit step (``attn_capture``), each output
+    held against the plain version on its own operands in bf16 and in
+    float32 (``bf16_check``); then the first layer's operands again with
+    valid lengths from 0 to Sk, so that the split-K route meets empty and
+    one-tile splits at the commit's shape."""
+    from repro_torch.kernels.decode_attention import ops as DA
+    out = {"calls": len(calls), "bf16": 0.0, "f32_limit_share": 0.0}
+    for q, (k, v, vl), _, got in calls:
+        r = bf16_check(what, got, DA.decode_attention(q, k, v, vl,
+                                                      impl="ref"),
+                       DA.decode_attention(q.float(), k.float(), v.float(),
+                                           vl, impl="ref"))
+        out["bf16"] = max(out["bf16"], r["bf16"])
+        out["f32_limit_share"] = max(out["f32_limit_share"],
+                                     r["f32_limit_share"])
+    q, (k, v, vl), _, _ = calls[0]
+    n, s = q.shape[0], k.shape[1]
+    edge = [0, 1, 2, 31, 32, 33, 63, 64, 65, 95, 137, 138, 139, 200,
+            s - 1, s]
+    ve = torch.tensor((edge * -(-n // len(edge)))[:n], dtype=torch.int32,
+                      device=q.device)
+    r = bf16_check(what + " edge lengths", DA.decode_attention(q, k, v, ve),
+                   DA.decode_attention(q, k, v, ve, impl="ref"),
+                   DA.decode_attention(q.float(), k.float(), v.float(), ve,
+                                       impl="ref"))
+    out.update(shape=list(q.shape), keys=s,
+               splits=DA.split_count(n * k.shape[2], s),
+               valid=[int(vl.min()), int(vl.max())], edge_bf16=r["bf16"])
+    out["bf16"] = max(out["bf16"], r["bf16"])
+    return out
+
+
+def phase_lm_carry(dev, params, cold: dict, card: str) -> dict:
+    """The LM main path through ``ServingEngine(decode="mcts")`` at full
+    width: smollm-135m (random bf16 weights, seed 0) serving LM_FULL's 16
+    ragged prompts x 8 tokens cold, with ``kv_splice``, and with
+    ``kv_splice`` + ``tree_reuse``, one run each in that order.  Each run
+    is one main path: counts set to 0 just before the admissions, and
+    summed over the admissions and the engine steps only (the checks
+    between steps launch kernels that do not count).  Holds the launch
+    counts the path implies (under ``kv_splice`` K4 bf16 once per layer
+    per admission and never per token, K3 one commit step per token on
+    top of the search's); the first token against the cold
+    ``mcts_decode_batch`` run's and, under ``kv_splice``, against a cold
+    search from the admitted roots (integer planes too, with
+    ``tree_reuse``); after every commit the carried logits against a
+    prefill of the longer prefix (a commit planted one position off must
+    read above STEP_TOL); the arena invariants per token; K1b against its
+    plain version on the rerooted arena after token 1.  Under
+    ``kv_splice`` the main path's own K4 launches of the admissions
+    (``[1, S, H, D]``) and K3 launches of every commit step (``[B, 1, H,
+    D]`` over each layer's cache slice at ``prefix_len + 1``) are kept
+    (``attn_capture``: the operands by reference, one copy of the output
+    inside the timed spans) and held against the plain versions on the
+    same operands (``carry_k4_check`` after the run, ``carry_k3_check``
+    after each step).  Times: tokens/s and each step's seconds, the
+    admissions', TTFT, one batched reroot (host and device) and the
+    commit step."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import reroot
+    from repro_torch.core.domains.lm_decode import top_k
+    from repro_torch.core.tree import check_consistency
+    from repro_torch.models.base import seq_step
+    from repro_torch.search import search_stacked
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.serving.mcts_decode import _domain
+    cfg, lm = get_config(LM_ARCH), LM_FULL
+    prompts, buf, _ = lm_buffers(cfg, lm, dev)
+    plens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                         device=dev)
+    n_new, b, L = lm["new_tokens"], lm["batch"], cfg.n_layers
+    ticks = -(-lm["budget"] // lm["lanes"]) + 3
+    extra = lm["search_depth"] + lm["rollout_len"]
+    search_k3 = ticks * lm["rollout_len"] * L
+    runs, total = {}, {}
+    for name, knobs in (("cold", {}), ("splice", CARRIES["splice"]),
+                        ("both", CARRIES["both"])):
+        what = f"lm carry {name}"
+        dc = lm_dcfg(lm, **knobs)
+        splice, reuse = dc.kv_splice, dc.tree_reuse
+        want_step = {"flash_attention_bf16": 0 if splice else L,
+                     "decode_attention": search_k3 + (L if splice else 0),
+                     "bes": ticks}
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_batch=b, max_seq=buf.shape[1], decode="mcts", mcts=dc),
+            device=dev)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=np.asarray(p, np.int32),
+                               max_new_tokens=n_new))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        adm, k3 = [], []
+        reset_launches()                   # this main path starts here
+        t0 = time.perf_counter()
+        with attn_capture(adm, lambda n, q, a: n == "flash_attention"):
+            eng._admit_loop()              # the 16 admissions
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        counts = all_launches()            # read just after them
+        if counts["flash_attention_bf16"] != (b * L if splice else 0) \
+                or len(adm) != counts["flash_attention_bf16"]:
+            fail(f"{what}: admissions launched flash_attention_bf16 "
+                 f"{counts['flash_attention_bf16']} times ({len(adm)} "
+                 "captured)")
+        s = eng._mcts_search
+        if splice:
+            root = {k: v.clone() for k, v in eng._carry["cache"].items()}
+            root_logits = eng._carry["logits"].clone()
+        step_s, step_err, reused, per_token = [], [], [], []
+        nf_max, planted, bes, pre_cache = 0, None, None, None
+        for t in range(n_new):
+            carried = torch.zeros(b, dtype=torch.int32, device=dev)
+            if reuse and eng._carry["arena"] is not None:
+                carried = carried_visits(eng._carry)
+            lens = torch.from_numpy(eng.prefix_len.copy()).to(dev)
+            kv_ptr = eng._carry["cache"]["k"].untyped_storage().data_ptr() \
+                if splice else None
+            before = all_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            com = []    # the commit step's K3 calls: on the carried cache
+            with attn_capture(com, lambda n, q, a: splice
+                              and n == "decode_attention"
+                              and a[0].untyped_storage().data_ptr()
+                              == kv_ptr):
+                eng.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            after = all_launches()         # read just after the step
+            delta = {k: after[k] - before[k] for k in after}
+            for k in counts:
+                counts[k] += delta[k]
+            per_token.append({k: delta[k] for k in want_step})
+            for k, w in want_step.items():
+                if delta[k] != w:
+                    fail(f"{what} token {t}: kernel {k} launched {delta[k]} "
+                         f"times, the path implies {w}")
+            # -- checks beside the main path (not counted) ---------------
+            if len(com) != (L if splice else 0):
+                fail(f"{what} token {t}: {len(com)} decode_attention calls "
+                     f"on the carried cache, the commit step makes {L}")
+            if com:
+                k3.append(carry_k3_check(
+                    f"{what} token {t} commit decode_attention", com))
+            del com
+            carry = eng._carry
+            if t == 0:
+                first = [eng.slots[i].out_tokens[0] for i in range(b)]
+                if first != [x[0] for x in cold["tokens"]]:
+                    fail(f"{what}: first tokens {first} != the cold run's "
+                         f"{[x[0] for x in cold['tokens']]}")
+            if splice and t == 0:
+                # a cold search from the admitted roots, this arena size
+                dom = _domain(cfg, params, buf, dc, prompt_len=plens,
+                              root_cache=root, root_logits=root_logits)
+                ref = search_stacked(dom, b, dataclasses.replace(
+                    dc.search_config(), keep_tree=True), 0, device=dev)
+                _, top = top_k(root_logits, lm["num_actions"])
+                if top.gather(1, ref.best_action.long()[:, None])[:, 0] \
+                        .tolist() != first:
+                    fail(f"{what}: the first tokens differ from a cold "
+                         "search's from the admitted roots")
+                for f in INT_PLANES if reuse else ():
+                    got = getattr(carry["arena"], f)
+                    cf = cold["first_planes"][f].to(dev)
+                    if not torch.equal(got, getattr(ref.tree, f)):
+                        fail(f"{what}: the first search's plane {f} "
+                             "differs from a cold search's")
+                    if not torch.equal(got if got.dim() == 1
+                                       else got[:, :cf.shape[1]], cf):
+                        fail(f"{what}: the first search's plane {f} "
+                             "differs from the cold run's")
+                del ref, dom, root, root_logits
+            if splice:
+                toks = torch.tensor([eng.slots[i].out_tokens[-1]
+                                     for i in range(b)], dtype=torch.int32,
+                                    device=dev)
+                fresh = fresh_logits(cfg, params, eng, extra)
+                step_err.append(max_diff(carry["logits"], fresh))
+                if step_err[-1] > STEP_TOL:
+                    fail(f"{what} token {t}: the carried logits differ from "
+                         f"a prefill of the longer prefix by {step_err[-1]} "
+                         f"(> {STEP_TOL})")
+                if t == 1:                 # a commit planted one off
+                    planted = {}
+                    for k, pos in (("late", lens + 1), ("early", lens - 1)):
+                        lg, _ = seq_step(cfg, params, {
+                            kk: v.clone() for kk, v in pre_cache.items()},
+                            toks, pos)
+                        planted[k] = max_diff(lg, fresh)
+                    if min(planted.values()) <= STEP_TOL:
+                        fail(f"{what}: a commit planted one position off "
+                             f"reads {planted}, within STEP_TOL {STEP_TOL}")
+                    pre_cache = None
+                if t == 0:
+                    pre_cache = {k: v.clone()
+                                 for k, v in carry["cache"].items()}
+            if reuse:
+                ar = carry["arena"]
+                cons = check_consistency(ar)
+                for k in ("vloss_drained", "unobs_drained", "parents_valid"):
+                    if not bool(cons[k].all()):
+                        fail(f"{what} token {t}: invariant {k} broken")
+                nf_max = max(nf_max, int(ar.next_free.max()))
+                if nf_max > dc.resolved_arena_nodes:
+                    fail(f"{what} token {t}: next_free {nf_max} > "
+                         f"{dc.resolved_arena_nodes}")
+                reused.append(int((carried > 0).sum()))
+                if not torch.equal(ar.visits[:, 0], carried + lm["budget"]):
+                    fail(f"{what} token {t}: root visits "
+                         f"{ar.visits[:, 0].tolist()} != carried "
+                         f"{carried.tolist()} + {lm['budget']}")
+                if t == 0:                 # K1b from the rerooted arena
+                    lens1 = torch.from_numpy(eng.prefix_len.copy()).to(dev)
+                    bufs = torch.from_numpy(eng.prefix_buf.copy()).to(dev)
+                    warm_dom = _domain(cfg, params, bufs, dc,
+                                       prompt_len=lens1)
+                    ar, use = s._carried_arena(dict(carry), warm_dom, lens1)
+                    bes = lm_bes_check(cfg, params, bufs, lens1, dc, dev,
+                                       warm=(ar, use))
+                del ar
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # after the run, so that TTFT does not include it
+        k4 = carry_k4_check(f"{what} admission flash_attention_bf16",
+                            adm) if splice else None
+        del adm
+        stats = eng.stats.snapshot()
+        if any(len(eng.slots[i].out_tokens) != n_new
+               or not eng.slots[i].done for i in range(b)):
+            fail(f"{what}: a request ended short of its budget")
+        secs = admit_s + sum(step_s)
+        run = {"seconds": secs, "tokens_per_s": b * n_new / secs,
+               "admit_s": admit_s, "step_s": step_s,
+               "ttft_p50_s": stats.get("serving/ttft_p50"),
+               "peak_mem_bytes": peak, "launches": counts,
+               "launches_per_token": per_token,
+               "tokens": [list(eng.slots[i].out_tokens) for i in range(b)]}
+        if splice:
+            # the commit step alone, on a copy of the carried rows
+            lens = torch.from_numpy(eng.prefix_len.copy()).to(dev)
+            toks = torch.tensor([eng.slots[i].out_tokens[-1]
+                                 for i in range(b)], dtype=torch.int32,
+                                device=dev)
+            cache = eng._carry["cache"]
+            run["commit_step_ms"], run["commit_step_host_ms"] = event_ms(
+                lambda c: seq_step(cfg, params, c, toks, lens),
+                setup=lambda: {k: v.clone() for k, v in cache.items()})
+            run.update(commit_vs_prefill_max_abs=step_err,
+                       planted_commit_max_abs=planted,
+                       k4_admission=k4, k3_commit=k3)
+            del cache
+        if reuse:
+            ar, act = eng._carry["arena"], eng._carry["action"]
+            run["reroot_ms"], run["reroot_host_ms"] = event_ms(
+                lambda _: reroot(ar, act))
+            run["arena_state_bytes"] = sum(v.numel() * v.element_size()
+                                           for v in ar.state.values())
+            run.update(arena_nodes=dc.resolved_arena_nodes,
+                       next_free_max=nf_max, reused_slots=reused,
+                       bes_max_abs_err=bes["max_abs_err"],
+                       bes_ms=bes["ms"], bes_plain_ms=bes["plain_ms"],
+                       bes_next_free=bes["next_free"])
+            del ar, act
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        runs[name] = run
+        del eng, s, carry
+        torch.cuda.empty_cache()
+    say("lm-carry " + "; ".join(
+        f"{k}: {v['tokens_per_s']:.2f} tokens/s (admissions "
+        f"{v['admit_s']:.3f} s, step median "
+        f"{statistics.median(v['step_s']):.3f} s), TTFT p50 "
+        f"{v['ttft_p50_s']:.3f} s, peak {v['peak_mem_bytes'] / 2**30:.2f} "
+        "GiB, launches " + ",".join(f"{a}={n}" for a, n in
+                                    v["launches"].items() if n)
+        + (f", commit step {v['commit_step_ms']:.3f} ms (host "
+           f"{v['commit_step_host_ms']:.3f}), commit vs prefill max "
+           f"{max(v['commit_vs_prefill_max_abs'])} (planted "
+           f"{v['planted_commit_max_abs']})" if "commit_step_ms" in v
+           else "")
+        for k, v in runs.items())
+        + f"; mcts_decode_batch cold {cold['tokens_per_s']:.2f} tokens/s; "
+        f"card {card}")
+    attn_err = {
+        "flash_attention_bf16": max(runs[k]["k4_admission"]["max_abs_err"]
+                                    for k in ("splice", "both")),
+        "decode_attention": max(x["bf16"] for k in ("splice", "both")
+                                for x in runs[k]["k3_commit"])}
+    say("lm-carry-attn " + "; ".join(
+        f"{k}: K4 bf16 at admission {a['calls']} launches {a['shapes']} "
+        f"held to the plain version ({100 * a['limit_share']:.1f}% of its "
+        f"limit, planted fault {a['planted_share']:.1f}x, max abs vs bf16 "
+        f"plain {a['max_abs_err']}); K3 at commit {len(c)} x "
+        f"{c[0]['calls']} launches {c[0]['shape']} over {c[0]['keys']} "
+        f"keys, {c[0]['splits']} splits, valid {c[0]['valid']} at token 0 "
+        f"(max abs vs bf16 plain {max(x['bf16'] for x in c)}, "
+        f"{100 * max(x['f32_limit_share'] for x in c):.1f}% of the f32 "
+        f"limit; valid 0-{c[0]['keys']} "
+        f"{max(x['edge_bf16'] for x in c)})"
+        for k in ("splice", "both")
+        for a, c in [(runs[k]["k4_admission"], runs[k]["k3_commit"])]))
+    r = runs["both"]
+    say(f"lm-carry-reroot one batched reroot of {b} x {r['arena_nodes']} "
+        f"rows ({r['arena_state_bytes'] / 1e9:.2f} GB of state planes) "
+        f"{r['reroot_ms']:.3f} ms device, {r['reroot_host_ms']:.3f} ms host; "
+        f"next_free max {r['next_free_max']}; reused slots per token "
+        f"{r['reused_slots']}; bes on the rerooted arena after token 1 "
+        f"(next_free up to {r['bes_next_free']}) == plain (max float diff "
+        f"{r['bes_max_abs_err']}), {r['bes_ms']:.5f} ms (plain "
+        f"{r['bes_plain_ms']:.3f}); card {card}")
+    return {"runs": runs, "launches": total, "attn_err": attn_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1657,7 +2174,9 @@ def rec_prompts(vocab: int, spec, seed: int) -> list:
             for n in lens]
 
 
-def rec_engine(cfg, params, spec, mode, dev):
+def rec_engine(cfg, params, spec, mode, dev, **knobs):
+    """The engine of ``spec`` with its requests submitted; ``knobs`` go to
+    the mcts mode's ``MCTSDecodeConfig`` (the cross-token carries)."""
     import numpy as np
     from repro_torch.serving import (EngineConfig, MCTSDecodeConfig,
                                      Request, ServingEngine)
@@ -1665,7 +2184,7 @@ def rec_engine(cfg, params, spec, mode, dev):
     if mode == "mcts":
         m = MCTSDecodeConfig(**{k: spec[k] for k in (
             "method", "num_actions", "budget", "lanes", "search_depth",
-            "rollout_len", "cp")})
+            "rollout_len", "cp")}, **knobs)
     eng = ServingEngine(cfg, params, EngineConfig(
         max_batch=spec["max_batch"], max_seq=spec["max_seq"], decode=mode,
         policy=spec.get("policy", "fcfs"), mcts=m), device=dev)
@@ -2281,6 +2800,8 @@ def main() -> int:
         lm_small = phase_lm_small(dev)
     with f32_census(census, "smoke engines (zamba2)"):
         rec_small = phase_rec_small(dev)
+    with f32_census(census, "smoke carries"):
+        carry_small = phase_carry_small(dev)
     torch.cuda.synchronize()
     small_counts = all_launches()          # read just after them
     if small_counts["flash_attention"] == 0:
@@ -2291,15 +2812,23 @@ def main() -> int:
     attn["flash_attention"]["max_abs_err"] = max(
         attn["flash_attention"]["max_abs_err"], f32_paths["max_abs_err"])
     runs, counts = phase_full(dev)
-    lm_run, lm_params = phase_lm_full(dev)
+    lm_run, lm_params, lm_first = phase_lm_full(dev)
+    # the carry runs before any tracing: their steps are timed beside the
+    # cold mcts_decode_batch run's
+    lm_carry = phase_lm_carry(dev, lm_params, {
+        "tokens": lm_run["tokens"], "first_planes": lm_first,
+        "tokens_per_s": lm_run["tokens_per_s"]}, card)
+    for k, e in lm_carry["attn_err"].items():
+        attn[k]["max_abs_err"] = max(attn[k]["max_abs_err"], e)
     lm_prof = phase_lm_profile(dev, lm_params)
-    del lm_params
+    del lm_params, lm_first
     torch.cuda.empty_cache()
     rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
     prof = phase_profile(dev)
     # launches on the main paths: the float32 smoke runs, P-game, LM
-    # decode, the engines
-    paths = (small_counts, counts, lm_run["launches"], rec_counts)
+    # decode cold and with the carries, the engines
+    paths = (small_counts, counts, lm_run["launches"], lm_carry["launches"],
+             rec_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
@@ -2337,7 +2866,8 @@ def main() -> int:
             err, ms, pms, (bms, by) = kern[tag][base]
             lib = None
             if base == "bes":
-                err = max(err, lm_run["bes_max_abs_err"])
+                err = max(err, lm_run["bes_max_abs_err"],
+                          lm_carry["runs"]["both"]["bes_max_abs_err"])
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": repl, "launches": total[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -2355,6 +2885,7 @@ def main() -> int:
               "small_float_diff": small, "lm_small_tokens": lm_small,
               "full_runs": runs, "launch_counts": counts, "profile": prof,
               "lm_full": lm_run, "lm_profile": lm_prof,
+              "carry_small": carry_small, "lm_carry": lm_carry,
               "rec_kernels": rec_kern, "rec_attn_zamba2": rec_attn,
               "rec_carry": rec_carry_, "rec_crossover": rec_cross,
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,

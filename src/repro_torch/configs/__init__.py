@@ -4,7 +4,7 @@
 ``get_smoke_config(arch)`` -> reduced same-family config for CPU tests.
 Copies of ``repro.configs`` for the ported families: the four dense
 architectures, rwkv6-1.6b (``rwkv6``) and zamba2-1.2b (``zamba2``); the
-other families come with their models (ROADMAP Queue 1 item 13).
+other families come with their models (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 

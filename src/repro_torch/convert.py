@@ -1,5 +1,6 @@
 """The state carry between the JAX package's ``TreeArena`` and the port's,
-and the JAX model parameters as the port's.
+the JAX model parameters as the port's, and the serving searcher's
+cross-token carry in both layouts.
 
 A search tree is this system's state, as weights are a model's: to start
 both implementations from the same mid-search tree, a JAX arena's leaves
@@ -11,6 +12,13 @@ Field layout: the JAX arena's planes are ``[N]`` / ``[N, A]`` with scalar
 ``next_free`` / ``free_top``; a ``search_batch`` result adds a leading
 batch axis.  The port's planes always carry the batch axis.  The P-game
 ``hash`` is uint32 in JAX and int64 in the port.
+
+The cross-token carry of ``ReusableSearcher`` (``carry_from_numpy`` /
+``carry_to_numpy``): the JAX cached LM state ``{"len", "cache": {...},
+"logits"}`` is the port's flat ``{"len", "plen", "logits", **cache}``
+(the uncached ``{"toks", "len"}`` is ``{"toks", "len", "plen"}``).  The
+port keeps each node's prompt length ``plen``, which the JAX state does
+not: going to the port the caller supplies it, going back it is dropped.
 """
 from __future__ import annotations
 
@@ -89,3 +97,76 @@ def params_from_numpy(tree, device="cpu"):
         t = torch.from_numpy(np.array(x.view(np.uint16)).astype(np.int32))
         return (t << 16).view(torch.float32).to(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(x)).to(device)
+
+
+_META = ("len", "plen", "logits")
+
+
+def _flat_state(state, plen, shape) -> Dict[str, Any]:
+    """A JAX LM state's numpy leaves in the port's flat layout, with the
+    ``plen`` plane (``plen`` broadcast to ``shape``) added."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, Mapping):
+            out.update({kk: np.asarray(vv) for kk, vv in v.items()})
+        else:
+            out[k] = np.asarray(v)
+    out["plen"] = np.broadcast_to(
+        np.asarray(plen, np.int32).reshape(
+            (-1,) + (1,) * (len(shape) - 1)), shape).copy()
+    return out
+
+
+def _nested_state(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The port's flat LM state as the JAX layout (``plen`` dropped)."""
+    if "logits" not in state:
+        return {k: v for k, v in state.items() if k != "plen"}
+    return {"len": state["len"], "logits": state["logits"],
+            "cache": {k: v for k, v in state.items() if k not in _META}}
+
+
+def carry_from_numpy(carry, plen, device="cpu") -> Dict[str, Any]:
+    """The port's ``ReusableSearcher`` carry from a JAX one whose leaves
+    were taken with ``np.asarray`` (``"arena"`` a mapping of planes or an
+    object with them; the batch axis leads every leaf).  ``plen [B]``
+    fills the port's ``plen`` plane of the carried arena."""
+    out: Dict[str, Any] = {}
+    if "arena" in carry:
+        ar = carry["arena"]
+        planes = {f: np.asarray(_field(ar, f)) for f in PLANES}
+        planes["state"] = _flat_state(_field(ar, "state"), plen,
+                                      planes["parent"].shape)
+        out["arena"] = arena_from_numpy(planes, device)
+        out["action"] = torch.from_numpy(
+            np.array(carry["action"], np.int32)).to(device)
+        out["alive"] = torch.from_numpy(
+            np.array(carry["alive"], bool)).to(device)
+    if "cache" in carry:
+        out["cache"] = {k: params_from_numpy(v, device)
+                        for k, v in carry["cache"].items()}
+        out["logits"] = params_from_numpy(carry["logits"], device)
+    return out
+
+
+def carry_to_numpy(carry) -> Dict[str, Any]:
+    """The JAX layout of the port's carry, numpy leaves (``"arena"`` as a
+    mapping of planes, ``plen`` dropped, bfloat16 as float32).  Entries
+    still None (before the first admission or step) are left out."""
+    out: Dict[str, Any] = {}
+    for k, v in carry.items():
+        if v is None:
+            continue
+        if k == "arena":
+            planes = arena_to_numpy(v)
+            planes["state"] = _nested_state(planes["state"])
+            out[k] = planes
+        elif isinstance(v, dict):
+            out[k] = {kk: _to_numpy(vv) for kk, vv in v.items()}
+        else:
+            out[k] = _to_numpy(v)
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16: those leaves come back as float32 (exact)
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()

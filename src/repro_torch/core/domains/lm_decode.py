@@ -18,6 +18,12 @@ draws nothing: ``draw_shape`` is ``(0,)``.
   ``"toks"`` for the generic fallback).  With ``root_cache`` /
   ``root_logits`` set, ``root_state`` returns them instead of prefilling.
 
+Cross-token hooks (read by ``core.tree.init_tree``): ``root_warm``, a
+``RootCarry`` for the root's statistics, and ``root_arena`` /
+``root_arena_alive``, a carried arena spliced in whole.  A carried arena's
+``plen`` plane holds the previous token's prompt length; the serving
+searcher rewrites it, and ``terminal`` after it, before splicing.
+
 Every method takes states of any leading shape.  ``plen`` (the root's
 prompt length) is carried in the state so that one domain whose
 ``prompt`` / ``prompt_len`` were stacked by ``search_batch`` decides
@@ -65,6 +71,15 @@ class LMDecodeDomain:
     temperature: float = 1.0
     prompt_len: Any = None            # true prefix length (tensor, [] or
                                       # [B]); None -> prompt.shape[-1]
+    root_warm: Any = None             # optional RootCarry (core.tree)
+                                      # seeding the root's N / W / prior;
+                                      # None searches cold
+    root_arena: Any = None            # optional carried TreeArena (the
+                                      # search's capacity): the previous
+                                      # token's rerooted subtree, spliced in
+                                      # whole by core.tree.init_tree
+    root_arena_alive: Any = None      # bool ([] or [B]) gating root_arena
+                                      # per root; None means alive
 
     def __post_init__(self):
         object.__setattr__(self, "_fam", get_family(self.cfg))

@@ -164,7 +164,7 @@ def get_family(cfg_or_name):
         if name not in _FAMILY_MODULES:
             raise NotImplementedError(
                 f"model family {name!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 13); ported: {sorted(_FAMILY_MODULES)}")
+                f"item 4); ported: {sorted(_FAMILY_MODULES)}")
         importlib.import_module(f"repro_torch.models.{_FAMILY_MODULES[name]}")
     return _FAMILIES[name]
 

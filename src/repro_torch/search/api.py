@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core.arena import TreeArena
 from repro_torch.core.stages import SearchParams
 from repro_torch.core.tree import Tree, root_child_stats
 from repro_torch.search.domain import Domain, missing_members
@@ -229,7 +230,8 @@ def _check(domain) -> None:
 
 def search(domain, cfg: SearchConfig, rng, *, device=None) -> SearchResult:
     """Run one search.  The result has no batch axis, except ``tree``,
-    which is the arena with a batch of one."""
+    which is the arena with a batch of one; a carried ``root_arena`` on
+    the domain has a batch of one too."""
     _check(domain)
     dev = resolve_device(device)
     draws = _draws(domain, cfg, rng, (), dev)[None]
@@ -249,7 +251,9 @@ def search_batch(domains: Sequence[Any], cfg: SearchConfig, rng, *,
     ``search_batch(ds, cfg, draws)[i] == search(ds[i], cfg, draws[i])``.
 
     The domains share one dataclass and differ, if at all, in tensor-valued
-    fields (or dicts of tensors), which are stacked on a new leading axis;
+    fields (or dicts of tensors, as a ``root_warm`` carry), which are
+    stacked on a new leading axis, and in carried ``TreeArena``s of batch
+    one (``root_arena``), which are concatenated along their batch axis;
     fields that differ otherwise (``num_actions``, depths, seeds) raise
     TypeError."""
     domains = list(domains)
@@ -264,8 +268,9 @@ def search_stacked(domain, batch: int, cfg: SearchConfig, rng, *,
                    device=None) -> SearchResult:
     """``search_batch`` over a domain whose tensor fields already carry the
     batch axis, as ``search_batch`` stacks B domains: its ``root_state()``
-    returns ``[batch] + S`` leaves.  For a caller that holds the batch
-    already (the batched decode searcher), with no split and restack."""
+    returns ``[batch] + S`` leaves, and a carried ``root_arena`` has
+    batch ``batch``.  For a caller that holds the batch already (the
+    batched decode searcher), with no split and restack."""
     _check(domain)
     return _search_b(domain, True, batch, cfg, rng, device)
 
@@ -274,6 +279,9 @@ def _search_b(dom, stacked: bool, b: int, cfg, rng, device) -> SearchResult:
     dev = resolve_device(device)
     draws = _draws(dom, cfg, rng, (b,), dev)
     return _run(dom, cfg, draws, _root_state(dom, stacked, b, dev))
+
+
+_TREE_HOOKS = ("root_warm", "root_arena", "root_arena_alive")
 
 
 def _same(a, b) -> bool:
@@ -285,6 +293,10 @@ def _same(a, b) -> bool:
         return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
                 and a.shape == b.shape and a.dtype == b.dtype
                 and a.device == b.device and torch.equal(a, b))
+    if isinstance(a, TreeArena) or isinstance(b, TreeArena):
+        return (isinstance(a, TreeArena) and isinstance(b, TreeArena)
+                and all(_same(getattr(a, f.name), getattr(b, f.name))
+                        for f in dataclasses.fields(a)))
     if isinstance(a, dict) or isinstance(b, dict):
         return (isinstance(a, dict) and isinstance(b, dict)
                 and a.keys() == b.keys()
@@ -295,10 +307,12 @@ def _same(a, b) -> bool:
 def _stackable(v) -> bool:
     if isinstance(v, dict):
         return all(_stackable(x) for x in v.values())
-    return isinstance(v, torch.Tensor)
+    return isinstance(v, (torch.Tensor, TreeArena))
 
 
 def _stack(vals):
+    if isinstance(vals[0], TreeArena):    # batch-1 arenas: concatenated
+        return TreeArena.cat(vals)
     if isinstance(vals[0], dict):
         return {k: _stack([v[k] for v in vals]) for k in vals[0]}
     return torch.stack(vals)
@@ -332,4 +346,7 @@ def _batch_domains(domains):
                             f"{e}") from e
     if not varying:
         return d0, False
-    return dataclasses.replace(d0, **varying), True
+    # the warm-start hooks reach the trees (core.tree.init_tree), not the
+    # root state: domains that differ only there share one root
+    stacked = not set(varying) <= set(_TREE_HOOKS)
+    return dataclasses.replace(d0, **varying), stacked

@@ -15,6 +15,9 @@ randomness:
   tree        [rounds, threads, *draw_shape]    split(rng, rounds), lanes
   pipeline    [n_ticks, lanes, *draw_shape]     split(rng, n_ticks), lanes
 
+Every tree-bearing strategy builds its tree with ``core.tree.init_tree``,
+so a domain's warm-start hooks (``root_warm``, ``root_arena``) apply to
+each; ``root``, whose workers' trees start cold, rejects them.
 Stats schema, ``duplicates`` and the ``extras`` are those of the JAX
 package (``dup_within`` / ``dup_cross``; the pipeline's
 ``mean_occupancy`` and ``dup_per_tick``), each with a leading batch axis.
@@ -92,6 +95,10 @@ def root(domain, cfg: SearchConfig, draws, root_state) -> SearchResult:
     """Root parallelization / Ensemble UCT: ``lanes`` independent
     sequential searches per root (run as B x workers trees), root
     statistics summed.  ``tree`` is None."""
+    if any(getattr(domain, h, None) is not None
+           for h in ("root_warm", "root_arena")):
+        raise ValueError("the root strategy takes no warm start (root_warm /"
+                         " root_arena): its workers' trees start cold")
     bsz, workers = draws.shape[0], _workers(cfg)
     per = _ceil_div(cfg.budget, workers)
     tree, _, dups = _sequential_core(

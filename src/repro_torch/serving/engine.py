@@ -20,14 +20,16 @@ Two per-slot decode modes (``EngineConfig.decode``):
   request alone and splices the cache row into its slot; each step is one
   ``decode_step`` over all slots.
 * ``"mcts"``   — every engine step runs ONE batched multi-root search
-  (``make_batched_searcher``, the stateless searcher) over all slots'
-  prefixes and commits each live slot's chosen token.  ``kv_splice`` /
-  ``tree_reuse`` (the JAX package's ``ReusableSearcher``) raise
-  ``NotImplementedError``, as ``make_batched_searcher`` does.
+  (``make_batched_searcher``) over all slots' prefixes and commits each
+  live slot's chosen token.  With ``kv_splice`` / ``tree_reuse`` the
+  searcher is a ``ReusableSearcher`` and the engine threads its per-slot
+  carry: ``init_carry`` at construction, ``admit`` when a request is
+  admitted (its only prefill under ``kv_splice``), ``step`` every engine
+  step.  Eviction needs no call: readmission overwrites the slot.
 
 Runs on ``cuda:0`` unless ``device`` is given; ``params`` are moved there
 once.  ``EngineConfig.mesh`` takes ``None`` or ``False`` (one device):
-multi-device search is not ported.
+multi-device search is not ported (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 from repro_torch.models.base import ModelConfig, get_family, tree_to
 from repro_torch.search.api import resolve_device
 from repro_torch.serving.mcts_decode import (MCTSDecodeConfig,
+                                             ReusableSearcher,
                                              make_batched_searcher)
 from repro_torch.serving.scheduler import Evict, Request, RequestScheduler
 from repro_torch.serving.stats import ServingStats, percentile
@@ -66,7 +69,7 @@ class ServingEngine:
         if engine_cfg.mesh is not None and engine_cfg.mesh is not False:
             raise NotImplementedError(
                 "an explicit mesh shards the search across devices, which "
-                "the port does not have yet (ROADMAP Queue 1 item 12)")
+                "the port does not have yet (ROADMAP Queue 1 item 3)")
         if engine_cfg.decode not in ("greedy", "mcts"):
             raise ValueError(f"unknown decode mode {engine_cfg.decode!r}")
         self.cfg = cfg
@@ -82,6 +85,7 @@ class ServingEngine:
         # mode's per-slot caches live inside each per-token search
         self.cache = (self.fam.init_cache(cfg, b, s, device=self.device)
                       if self.mode == "greedy" else None)
+        self._carry = None
         if self.mode == "mcts":
             self.mcfg = engine_cfg.mcts or MCTSDecodeConfig()
             # per-slot padded prefix buffers; true lengths ride separately
@@ -90,6 +94,8 @@ class ServingEngine:
             self._searches = 0         # seeds each search's (empty) draws
             self._mcts_search = make_batched_searcher(
                 cfg, self.params, self.mcfg, batch=b, device=self.device)
+            if isinstance(self._mcts_search, ReusableSearcher):
+                self._carry = self._mcts_search.init_carry(s)
 
     # -- request intake ----------------------------------------------------
     @property
@@ -171,11 +177,15 @@ class ServingEngine:
         prefix = np.asarray(list(req.prompt) + req.out_tokens, np.int32)
         plen = len(prefix)
         if self.mode == "mcts":
-            # the searcher prefills this slot from the prefix buffer inside
-            # each per-token search; writing the row is the slot reset
+            # the stateless searcher prefills this slot from the prefix
+            # buffer inside each per-token search; writing the row is the
+            # slot reset.  A stateful searcher prefills ONCE here instead
             self.prefix_buf[i] = 0
             self.prefix_buf[i, :plen] = prefix
             self.prefix_len[i] = plen
+            if self._carry is not None:
+                self._carry = self._mcts_search.admit(
+                    self._carry, i, self.prefix_buf[i], plen)
             return
         # greedy: prefill this request alone, splice its row into slot i
         one = self.fam.init_cache(self.cfg, 1, self.ecfg.max_seq,
@@ -250,8 +260,13 @@ class ServingEngine:
         """One batched multi-root search over every slot; commit one token
         per live slot.  Dead slots are searched too (one fixed [B] batch)
         and their outputs ignored."""
-        toks = self._mcts_search(self.prefix_buf, self.prefix_len,
-                                 self._searches)
+        if self._carry is not None:
+            toks, self._carry = self._mcts_search.step(
+                self.prefix_buf, self.prefix_len, self._searches,
+                self._carry)
+        else:
+            toks = self._mcts_search(self.prefix_buf, self.prefix_len,
+                                     self._searches)
         self._searches += 1
         toks = np.asarray(torch.as_tensor(toks).cpu())
         now = self.stats.now()

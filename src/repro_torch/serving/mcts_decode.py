@@ -1,5 +1,5 @@
-"""MCTS-guided decoding on ``repro_torch.search`` — the stateless half of
-``repro.serving.mcts_decode``.
+"""MCTS-guided decoding on ``repro_torch.search`` — the counterpart of
+``repro.serving.mcts_decode``, on one device.
 
 For each emitted token, one search (any registered strategy, default the
 paper's pipeline) explores the top-A continuations: Select / Expand /
@@ -14,14 +14,22 @@ the next token's search starts from the extended prefix.
   ragged: they share a padded token buffer, and the true lengths ride
   along as ``LMDecodeDomain.prompt_len``.
 
-KV-cache-aware by default (``MCTSDecodeConfig.cached``): the searcher
-prefills every request's prefix ONCE per token, as one batched prefill,
-takes the root top-k from those logits and hands the cache to the search
-as its roots (``CachedLMDecodeDomain.root_cache`` / ``root_logits``).
+KV-cache-aware by default (``MCTSDecodeConfig.cached``): the stateless
+searcher prefills every request's prefix ONCE per token, as one batched
+prefill, takes the root top-k from those logits and hands the cache to the
+search as its roots (``CachedLMDecodeDomain.root_cache`` /
+``root_logits``).
 
-Not ported yet: the cross-token carries ``kv_splice`` and ``tree_reuse``
-(``ReusableSearcher``, ROADMAP Queue 1 item 10) and multi-device meshes
-(item 12).
+Cross-token carries (``ReusableSearcher``, returned by
+``make_batched_searcher`` when ``kv_splice`` or ``tree_reuse`` is on):
+
+* ``kv_splice`` — each slot's root cache row and next-token logits are
+  carried: a request is prefilled once, at admission, and each committed
+  token costs one batched ``seq_step`` over all slots;
+* ``tree_reuse`` — each slot's searched arena is rerooted on the
+  committed child and spliced in as the next search's starting tree.
+
+Multi-device meshes are not ported (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -33,15 +41,14 @@ import torch
 
 from repro_torch.core.domains.lm_decode import (CachedLMDecodeDomain,
                                                 LMDecodeDomain, top_k)
-from repro_torch.models.base import ModelConfig, tree_to
+from repro_torch.core.tree import reroot, reroot_ok
+from repro_torch.models.base import (ModelConfig, seq_prefill, seq_step,
+                                     tree_to)
 from repro_torch.search import SearchConfig, SearchParams, search_stacked
 from repro_torch.search.api import resolve_device
 
-__all__ = ["MCTSDecodeConfig", "make_batched_searcher", "mcts_decode",
-           "mcts_decode_batch"]
-
-_NOT_PORTED = ("{} carries state across tokens, which the port does not "
-               "have yet (ROADMAP Queue 1 item 10: ReusableSearcher)")
+__all__ = ["MCTSDecodeConfig", "ReusableSearcher", "make_batched_searcher",
+           "mcts_decode", "mcts_decode_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +64,8 @@ class MCTSDecodeConfig:
     cp: float = 1.0
     temperature: float = 1.0
     cached: bool = True        # CachedLMDecodeDomain (one prefill/token)
-    kv_splice: bool = False    # cross-token root-cache carry (not ported)
-    tree_reuse: bool = False   # cross-token subtree reuse (not ported)
+    kv_splice: bool = False    # cross-token root-cache carry
+    tree_reuse: bool = False   # cross-token subtree reuse
     wave_select: str = "auto"
     kernels: str = "auto"
     vl_mode: str = "loss"
@@ -103,34 +110,191 @@ def _domain(cfg: ModelConfig, params, prompt, dcfg: MCTSDecodeConfig,
                prompt_len=prompt_len, **extra)
 
 
+def _cold_roots(dom, dcfg: MCTSDecodeConfig):
+    """One batched prefill of the roots: the domain with them spliced in
+    (cached) and each root's top-A tokens ``[B, A]``."""
+    root = dom.root_state()
+    if dcfg.cached:
+        dom = dataclasses.replace(dom, root_cache=dom.cache_leaves(root),
+                                  root_logits=root["logits"])
+    return dom, top_k(dom._state_logits(root), dcfg.num_actions)[1]
+
+
+def _buffers(buf, lens, batch: int, dev):
+    buf = torch.as_tensor(buf, device=dev).to(torch.int32)
+    lens = torch.as_tensor(lens, device=dev).to(torch.int32)
+    if buf.shape[0] != batch:
+        raise ValueError(f"searcher built for {batch} slots, got "
+                         f"{buf.shape[0]}")
+    return buf, lens
+
+
+class ReusableSearcher:
+    """Batched per-token searcher with an explicit cross-token carry, the
+    JAX package's ``ReusableSearcher`` on one device.  The carry is a dict
+    of per-slot tensors:
+
+    * ``"cache"`` / ``"logits"`` (``kv_splice``) — each slot's root cache
+      row (the family's cache leaves at ``max_len``, ``[B, ...]``) and its
+      next-token logits ``[B, V]``, advanced by one ``seq_step`` when a
+      token commits;
+    * ``"arena"`` / ``"action"`` / ``"alive"`` (``tree_reuse``) — the
+      previous token's searched arena (batch B), the actions committed
+      and a liveness flag per slot.  The next step reroots the arena on
+      the committed child and splices it in as the search's starting tree
+      (``LMDecodeDomain.root_arena``); a dead or unreusable slot searches
+      cold, bit for bit.
+
+    ``init_carry`` zeroes the cache rows and logits (dead until ``admit``
+    prefills them) and leaves ``"arena"`` None: the first ``step``
+    searches every slot cold, as the JAX package's all-dead identity carry
+    does, without a zero arena the size of a searched one.
+
+    Protocol::
+
+        carry = s.init_carry(buf_len)            # engine start
+        carry = s.admit(carry, slot, row, plen)  # request admitted
+        toks, carry = s.step(buf, lens, rng, carry)   # one token, B slots
+
+    ``admit`` is a request's only prefill; eviction needs no call
+    (readmission overwrites the slot).  ``admit`` and ``step`` update the
+    carry's tensors in place and return it: a caller that needs a carry
+    as it was clones it first.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, dcfg: MCTSDecodeConfig,
+                 batch: int, *, device=None):
+        if not dcfg.stateful:
+            raise ValueError("ReusableSearcher needs kv_splice or "
+                             "tree_reuse; the stateless searcher is "
+                             "make_batched_searcher's")
+        self.dev = resolve_device(device)
+        self.cfg, self.dcfg, self.batch = cfg, dcfg, batch
+        self.params = tree_to(params, self.dev)
+        self.scfg = dcfg.search_config()
+
+    # -- carry lifecycle ----------------------------------------------------
+    def _max_len(self, buf_len: int) -> int:
+        return buf_len + self.dcfg.search_depth + self.dcfg.rollout_len
+
+    def init_carry(self, buf_len: int) -> dict:
+        """The identity carry for ``batch`` slots sharing a ``[*,
+        buf_len]`` token buffer: every slot dead, its cache row and logits
+        zero."""
+        carry = {}
+        if self.dcfg.tree_reuse:
+            carry["arena"] = None
+            carry["action"] = torch.zeros((self.batch,), dtype=torch.int32,
+                                          device=self.dev)
+            carry["alive"] = torch.zeros((self.batch,), dtype=torch.bool,
+                                         device=self.dev)
+        if self.dcfg.kv_splice:
+            # the prefill's shapes, as the JAX package's eval_shape gives
+            # them: on the meta device it computes nothing
+            meta = torch.device("meta")
+            logits, cache = seq_prefill(
+                self.cfg, tree_to(self.params, meta),
+                torch.zeros((1, self._max_len(buf_len)), dtype=torch.int32,
+                            device=meta),
+                torch.ones((1,), dtype=torch.int32, device=meta))
+            zeros = lambda v: torch.zeros((self.batch,) + v.shape[1:],
+                                          dtype=v.dtype, device=self.dev)
+            carry["cache"] = {k: zeros(v) for k, v in cache.items()}
+            carry["logits"] = zeros(logits)
+        return carry
+
+    def admit(self, carry: dict, slot: int, buf_row, plen: int) -> dict:
+        """Reset ``slot`` for a fresh request whose padded prefix is
+        ``buf_row`` (``[buf_len]``) with true length ``plen``: the carried
+        tree dies, and the root cache row is prefilled ONCE."""
+        if self.dcfg.tree_reuse:
+            carry["alive"][slot] = False
+        if self.dcfg.kv_splice:
+            row = torch.as_tensor(buf_row, device=self.dev).to(torch.int32)
+            toks = torch.zeros((1, self._max_len(row.shape[-1])),
+                               dtype=torch.int32, device=self.dev)
+            toks[0, :row.shape[-1]] = row
+            plen_t = torch.full((1,), int(plen), dtype=torch.int32,
+                                device=self.dev)
+            logits, cache = seq_prefill(self.cfg, self.params, toks, plen_t)
+            for k, v in cache.items():
+                carry["cache"][k][slot] = v[0]
+            carry["logits"][slot] = logits[0]
+        return carry
+
+    # -- per-token step -----------------------------------------------------
+    def _carried_arena(self, carry: dict, dom, lens):
+        """The previous arenas rerooted on the committed actions, with the
+        horizon moved to this token's prompt lengths, and the slots whose
+        carry is reusable: alive, and the committed child expanded."""
+        arena, carry["arena"] = carry["arena"], None
+        use = carry["alive"] & reroot_ok(arena, carry["action"])
+        ar = reroot(arena, carry["action"])
+        del arena
+        # every carried row's plen is the previous token's; rewrite it on
+        # all N rows, then derive terminal from it (len >= plen + depth)
+        ar.state["plen"] = lens[:, None].expand(ar.parent.shape).clone()
+        return ar.replace(terminal=dom.is_terminal(ar.state)), use
+
+    def step(self, buf, lens, rng, carry: dict):
+        """One batched search over all slots -> (each slot's chosen token
+        ``[B]`` i32, the carry advanced by the committed tokens)."""
+        d = self.dcfg
+        buf, lens = _buffers(buf, lens, self.batch, self.dev)
+        extra = {}
+        if d.kv_splice:
+            extra = dict(root_cache=carry["cache"],
+                         root_logits=carry["logits"])
+        dom = _domain(self.cfg, self.params, buf, d, prompt_len=lens,
+                      **extra)
+        if d.kv_splice:
+            # the carried logits ARE the roots' next-token distributions
+            _, tops = top_k(carry["logits"], d.num_actions)
+        else:
+            dom, tops = _cold_roots(dom, d)
+        if d.tree_reuse and carry["arena"] is not None:
+            ar, use = self._carried_arena(carry, dom, lens)
+            dom = dataclasses.replace(dom, root_arena=ar,
+                                      root_arena_alive=use)
+            del ar
+        res = search_stacked(dom, self.batch, self.scfg, rng,
+                             device=self.dev)
+        del dom
+        toks = tops.gather(1, res.best_action.long()[:, None])[:, 0] \
+            .to(torch.int32)
+        if d.tree_reuse:
+            carry["arena"] = res.tree
+            carry["action"] = res.best_action.to(torch.int32)
+            carry["alive"] = torch.ones_like(carry["alive"])
+        if d.kv_splice:
+            # every slot's root row advanced by its committed token at its
+            # length: one step, where the cold path prefills the prefix
+            logits, carry["cache"] = seq_step(self.cfg, self.params,
+                                              carry["cache"], toks, lens)
+            carry["logits"] = logits
+        return toks, carry
+
+
 def make_batched_searcher(cfg: ModelConfig, params, dcfg: MCTSDecodeConfig,
                           batch: int, *, device=None):
-    """The per-token batched searcher: ``step(buf [B, buf_len] i32, lens
-    [B] i32, rng=0) -> [B] i32``, each slot's chosen next token.  ``rng``
+    """The per-token batched searcher.  Stateless (default): ``step(buf [B,
+    buf_len] i32, lens [B] i32, rng=0) -> [B] i32``, each slot's chosen
+    next token.  With ``dcfg.kv_splice`` or ``dcfg.tree_reuse``: a
+    ``ReusableSearcher``, whose ``step`` also threads the carry.  ``rng``
     seeds the playout draws (the LM playout is greedy and draws none).
     Runs on ``cuda:0`` unless ``device`` is given; ``params`` are moved
     there once."""
     if dcfg.stateful:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "kv_splice" if dcfg.kv_splice else "tree_reuse"))
+        return ReusableSearcher(cfg, params, dcfg, batch, device=device)
     dev = resolve_device(device)
     params = tree_to(params, dev)
     scfg = dcfg.search_config()
 
     def step(buf, lens, rng=0):
-        buf = torch.as_tensor(buf, device=dev).to(torch.int32)
-        lens = torch.as_tensor(lens, device=dev).to(torch.int32)
-        if buf.shape[0] != batch:
-            raise ValueError(f"searcher built for {batch} slots, got "
-                             f"{buf.shape[0]}")
-        dom = _domain(cfg, params, buf, dcfg, prompt_len=lens)
-        root = dom.root_state()             # one batched prefill
-        if dcfg.cached:
-            dom = dataclasses.replace(
-                dom, root_cache=dom.cache_leaves(root),
-                root_logits=root["logits"])
+        buf, lens = _buffers(buf, lens, batch, dev)
+        dom, top = _cold_roots(_domain(cfg, params, buf, dcfg,
+                                       prompt_len=lens), dcfg)
         res = search_stacked(dom, batch, scfg, rng, device=dev)
-        _, top = top_k(dom._state_logits(root), dcfg.num_actions)
         return top.gather(1, res.best_action.long()[:, None])[:, 0] \
             .to(torch.int32)
 
@@ -169,7 +333,9 @@ def mcts_decode_batch(cfg: ModelConfig, params, prompts, n_tokens: int,
                       device=None) -> List[List[int]]:
     """Decode B prompts together: each of the ``n_tokens`` steps is one
     batched multi-root search over all requests.  ``prompts`` is ``[B,
-    plen]`` or a ragged list of 1-D token sequences."""
+    plen]`` or a ragged list of 1-D token sequences.  With ``kv_splice`` /
+    ``tree_reuse`` the carry is threaded across the tokens: every prompt
+    is admitted (prefilled once) up front."""
     buf, lens = _pad_prompts(prompts, n_tokens)
     b = buf.shape[0]
     searcher = make_batched_searcher(cfg, params, dcfg, b, device=device)
@@ -177,9 +343,17 @@ def mcts_decode_batch(cfg: ModelConfig, params, prompts, n_tokens: int,
     buf_t = torch.from_numpy(buf).to(dev)
     lens_t = torch.from_numpy(lens).to(dev)
     rows = torch.arange(b, device=dev)
+    carry = None
+    if dcfg.stateful:
+        carry = searcher.init_carry(buf.shape[1])
+        for i in range(b):
+            carry = searcher.admit(carry, i, buf[i], int(lens[i]))
     out: List[List[int]] = [[] for _ in range(b)]
     for t in range(n_tokens):
-        toks = searcher(buf_t, lens_t, seed + t)
+        if carry is None:
+            toks = searcher(buf_t, lens_t, seed + t)
+        else:
+            toks, carry = searcher.step(buf_t, lens_t, seed + t, carry)
         buf_t[rows, lens_t.long()] = toks
         lens_t = lens_t + 1
         for i, tok in enumerate(toks.cpu().tolist()):

@@ -9,7 +9,8 @@ the preemption round trip, both admission policies, zero budgets and the
 elastic shrink.  Emitted token streams, ``run_until_drained``'s counts
 and the per-request summaries' token and preemption counts must be equal
 (timings differ by nature).  What the port does not have raises
-``NotImplementedError``: the cross-token searcher and explicit meshes.
+``NotImplementedError``: explicit meshes.  The cross-token carries are
+in ``test_torch_engine_carry.py``.
 """
 import numpy as np
 import pytest
@@ -208,8 +209,8 @@ def test_engine_shrink_requeues_and_keeps_serving(pair):
 
 def test_engine_rejects_what_it_cannot_run(pair):
     """Unknown decode modes and oversized prompts raise ValueError, as in
-    the JAX package; the cross-token searcher and explicit meshes raise
-    NotImplementedError (not ported)."""
+    the JAX package; explicit meshes raise NotImplementedError (not
+    ported)."""
     (_, _), (tc, tp) = pair
     mk = lambda **kw: TS.ServingEngine(tc, tp, TS.EngineConfig(**kw),
                                        device="cpu")
@@ -220,10 +221,6 @@ def test_engine_rejects_what_it_cannot_run(pair):
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(TS.Request(uid=0, prompt=np.arange(9, dtype=np.int32),
                               max_new_tokens=1))
-    for kw in (dict(kv_splice=True), dict(tree_reuse=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            mk(max_batch=2, decode="mcts",
-               mcts=TS.MCTSDecodeConfig(**DCFG, **kw))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         mk(max_batch=2, mesh=object())
     assert mk(max_batch=1, mesh=False).mode == "greedy"

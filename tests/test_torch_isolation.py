@@ -88,6 +88,28 @@ def test_model_init_and_engine_without_device_raise_when_no_cuda(
         assert ServingEngine(cfg, params, ecfg, device="cpu").mode == mode
 
 
+def test_reusable_searcher_without_device_raises_when_no_cuda(monkeypatch):
+    """The cross-token searcher resolves its device as the stateless one
+    does: ``cuda:0``, a raise without a card, the CPU only when asked; its
+    carry lives on that device."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.base import get_family
+    from repro_torch.serving import (MCTSDecodeConfig, ReusableSearcher,
+                                     make_batched_searcher)
+    cfg = get_smoke_config("smollm-135m")
+    params = get_family(cfg).init(cfg, seed=0, device="cpu")
+    dcfg = MCTSDecodeConfig(budget=4, lanes=2, kv_splice=True,
+                            tree_reuse=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_searcher(cfg, params, dcfg, 2)
+    s = make_batched_searcher(cfg, params, dcfg, 2, device="cpu")
+    assert isinstance(s, ReusableSearcher)
+    carry = s.admit(s.init_carry(4), 0, np.array([1, 2, 0, 0]), 2)
+    assert {v.device.type for v in carry["cache"].values()} == {"cpu"}
+    assert carry["alive"].device.type == "cpu"
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]

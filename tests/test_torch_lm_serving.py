@@ -14,7 +14,7 @@ import jax  # noqa: E402
 from repro.serving import MCTSDecodeConfig as JDC  # noqa: E402
 from repro.serving import mcts_decode_batch as jdecode  # noqa: E402
 from repro_torch.serving import (MCTSDecodeConfig,  # noqa: E402
-                                 make_batched_searcher, mcts_decode_batch)
+                                 mcts_decode_batch)
 from test_torch_lm_decode import JCFG, TCFG, params  # noqa: E402,F401
 
 jax.config.update("jax_default_matmul_precision", "highest")
@@ -45,14 +45,3 @@ def decode_pair(params, method, prompts, cached):
 def test_decode_token_for_token(params, method, prompts):
     want, got = decode_pair(params, method, prompts, True)
     assert got == want
-
-
-def test_cross_token_carries_are_not_ported(params):
-    _, tp = params
-    for kw in (dict(kv_splice=True), dict(tree_reuse=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make_batched_searcher(TCFG, tp, MCTSDecodeConfig(**kw), 2,
-                                  device="cpu")
-    with pytest.raises(ValueError):
-        MCTSDecodeConfig(kv_splice=True, cached=False)
-

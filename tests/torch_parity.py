@@ -205,3 +205,53 @@ def run_pair(method, lanes, budget=64, seed=0, binary=True, **kw):
     jc, _ = search_configs(method, lanes, budget, **kw)
     jres = jsearch(jd, jc, jax.random.key(seed))
     return jres, port_search(method, lanes, budget, seed, binary, **kw)
+
+
+def np_tree(x):
+    """A JAX pytree (a ``TreeArena``, a carry dict) as nested numpy: an
+    arena becomes a dict of its fields, its state nested as it is."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: np_tree(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: np_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def assert_nested_equal(want, got, msg=""):
+    """Two nested numpy dicts equal: the same keys and shapes, integer and
+    bool leaves exactly, float leaves within FLOAT_TOL."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), \
+            f"{msg}: keys {sorted(got)} != {sorted(want)}"
+        for k in want:
+            assert_nested_equal(want[k], got[k], f"{msg}/{k}")
+        return
+    want, got = np.asarray(want), np.asarray(got)
+    assert want.shape == got.shape, f"{msg}: {got.shape} != {want.shape}"
+    if want.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, err_msg=msg, **FLOAT_TOL)
+    else:
+        np.testing.assert_array_equal(got.astype(want.dtype), want,
+                                      err_msg=msg)
+
+
+def assert_lm_tree_equal(jtree, ttree, *, b=0, msg=""):
+    """A JAX LM-decode arena (unbatched) equals root ``b`` of the port's:
+    every plane and state leaf, the port's ``plen`` plane aside."""
+    from repro_torch.convert import carry_to_numpy
+    got = carry_to_numpy({"arena": ttree})["arena"]
+    got = {k: ({kk: (vv[b] if not isinstance(vv, dict)
+                     else {c: x[b] for c, x in vv.items()})
+                for kk, vv in v.items()} if isinstance(v, dict) else v[b])
+           for k, v in got.items()}
+    assert_nested_equal(np_tree(jtree), got, msg or "tree")
+
+
+def arena_map(tree, fn):
+    """The port's ``TreeArena`` with ``fn`` applied to every plane and
+    state leaf."""
+    return dataclasses.replace(tree, **{
+        f.name: ({k: fn(v) for k, v in tree.state.items()}
+                 if f.name == "state" else fn(getattr(tree, f.name)))
+        for f in dataclasses.fields(tree)})
