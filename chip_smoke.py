@@ -71,6 +71,30 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               token 1; tokens/s, TTFT, the batched reroot's and the
               commit step's times (lines ``lm-carry``,
               ``lm-carry-reroot``)
+  7b. shard  after ``full`` and before any tracing, each its own line:
+              ``shard``: the FULL P-game runs pipeline/mega loss/independent
+              and tree/mega wu/running through ``search_batch(mesh=)`` over
+              an in-process mesh of SHARD_ENTRIES entries on ``cuda:0``
+              (and over every card when there are two or more), at B = 128
+              and 126 (padding), every root held to the single-device run
+              (integers exact, ``value`` bit-equal or within VALUE_RTOL:
+              the line says which), playouts/s of both; ``shard-mp``: two
+              processes started with ``spawn`` on ``cuda:0`` under gloo
+              (NCCL refuses two ranks on one card), or one rank per card
+              under NCCL, ``shard_search_batch`` at FULL under
+              ``make_search_mesh()``, each rank's gathered result written
+              through ``repro_torch.checkpoint`` and held here against
+              this process's run; ``ft``: ``ft_search_batch`` at FULL
+              (4 hosts, chunks of 16) without failure, with a killed and a
+              stalled host, and stopped after one round then resumed from
+              the checkpoint store by a fresh driver, each merged result
+              held per root to ``search_batch`` and each report to what
+              the injection implies; ``lm-shard``: smollm-135m's 16 slots
+              through ``make_batched_searcher`` over 3 entries on
+              ``cuda:0`` (padded to 18, two dead), stateless and with
+              ``kv_splice`` + ``tree_reuse``, 2 tokens each, equal to the
+              unsharded searcher at batch 18 with two zero rows.  Their
+              launches join the kernels line's totals
   8. profile  device busy share and time by kernel of the fused P-game
               runs, one LM token's search and one engine step of each
               recurrent run (torch.profiler), tables in
@@ -759,7 +783,7 @@ def phase_kernels(dev):
 
 
 def run_batch(dev, cfg, method, wave_select, vl_mode, level_assign, draws,
-              puct=False):
+              puct=False, mesh=None):
     from repro_torch.search import SearchConfig, search_batch
     dom = make_domain(cfg)
     sc = SearchConfig(method=method, budget=cfg["budget"], lanes=cfg["lanes"],
@@ -767,7 +791,8 @@ def run_batch(dev, cfg, method, wave_select, vl_mode, level_assign, draws,
                                            vl_mode=vl_mode,
                                            level_assign=level_assign,
                                            puct=puct))
-    return search_batch([dom] * cfg["batch"], sc, draws, device=dev)
+    return search_batch([dom] * cfg["batch"], sc, draws, device=dev,
+                        mesh=mesh)
 
 
 def draws_for(cfg, method, seed):
@@ -2132,6 +2157,328 @@ def phase_lm_carry(dev, params, cold: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the sharded paths: root-parallel search over a mesh of devices and
+# processes, the elastic fault-tolerant driver, the LM searcher's mesh
+# ---------------------------------------------------------------------------
+SHARD_RUNS = [("pipeline", "mega", "loss", "independent"),
+              ("tree", "mega", "wu", "running")]
+SHARD_ENTRIES = 4     # in-process mesh entries on cuda:0
+SHARD_SEED = 2000
+FT_HOSTS, FT_CHUNK = 4, 16
+FT_WATCHDOG_S = 0.5   # the stall run's watchdog (the stall lasts 3x)
+LM_SHARD_ENTRIES = 3  # 16 slots padded to 18: two dead pad rows
+LM_SHARD_TOKENS = 2
+
+
+def hold_roots(what, got, want) -> str:
+    """Every root of ``got`` against ``want``: visits, best action, stats,
+    integer extras and the trees' integer planes exact; ``value`` (and the
+    float extras and planes) bit-equal or within VALUE_RTOL.  Returns
+    which."""
+    for f in ("action_visits", "best_action"):
+        if max_diff(getattr(got, f), getattr(want, f)) != 0:
+            fail(f"{what}: {f} differs from the single-device run")
+    for k in want.stats:
+        if max_diff(got.stats[k], want.stats[k]) != 0:
+            fail(f"{what}: stats {k} differs from the single-device run")
+    floats = [(got.action_value, want.action_value)]
+    for k, v in want.extras.items():
+        if v.dtype.is_floating_point:
+            floats.append((got.extras[k], v))
+        elif max_diff(got.extras[k], v) != 0:
+            fail(f"{what}: extras {k} differs from the single-device run")
+    if (got.tree is None) != (want.tree is None):
+        fail(f"{what}: tree kept on one side only")
+    tree_d = 0.0 if want.tree is None else \
+        compare_trees(what, got.tree, want.tree)
+    rel = 0.0
+    for a, b in floats:
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        r = float(((a - b).abs() / b.abs().clamp_min(1.0)).max()) \
+            if b.numel() else 0.0
+        if r > VALUE_RTOL:
+            fail(f"{what}: value differs by {r} relative (> {VALUE_RTOL})")
+        rel = max(rel, r)
+    if rel == 0 and tree_d == 0:
+        return "bit-equal"
+    return f"within VALUE_RTOL (max rel {rel:.3g}, tree {tree_d:.3g})"
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_shard(dev):
+    """``shard_search_batch`` (through ``search_batch(mesh=)``) at FULL
+    over an in-process mesh of SHARD_ENTRIES entries on ``cuda:0`` (and
+    over every card when there are two or more), at B = 128 and at 126
+    (padding), each root held to the single-device ``search_batch`` of
+    the same run.  One thread drives the entries in turn, so an
+    in-process mesh on one card is expected to be slower."""
+    from repro_torch.parallel import mesh_from_devices
+    meshes = {f"{SHARD_ENTRIES}x{dev}": mesh_from_devices(
+        [dev] * SHARD_ENTRIES)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        meshes[f"{n}-cards"] = mesh_from_devices(
+            [torch.device("cuda", i) for i in range(n)])
+    out = []
+    for i, (m, ws, vl, la) in enumerate(SHARD_RUNS):
+        draws = draws_for(FULL, m, SHARD_SEED + i).to(dev)
+        for b in (FULL["batch"], FULL["batch"] - 2):
+            cfg = dict(FULL, batch=b)
+            want, secs = timed(lambda: run_batch(dev, cfg, m, ws, vl, la,
+                                                 draws[:b]))
+            for name, mesh in meshes.items():
+                what = f"shard {m}/{ws}/{vl}/{la} B={b} {name}"
+                got, gsecs = timed(lambda: run_batch(
+                    None, cfg, m, ws, vl, la, draws[:b], mesh=mesh))
+                if got.tree.batch != b:
+                    fail(f"{what}: tree batch {got.tree.batch} != {b}")
+                how = hold_roots(what, got, want)
+                out.append({"run": what, "equal": how,
+                            "playouts_per_s": b * FULL["budget"] / gsecs,
+                            "single_playouts_per_s":
+                                b * FULL["budget"] / secs})
+                say(f"shard {m}/{ws}/{vl}/{la} B={b} mesh {name}: every "
+                    f"root == single device (integers exact, value {how}); "
+                    f"{out[-1]['playouts_per_s']:.0f} playouts/s sharded, "
+                    f"{out[-1]['single_playouts_per_s']:.0f} single")
+    del want, got
+    return out
+
+
+def shard_mp_worker(rank: int, world: int, backend: str, init: str,
+                    out: str, seed: int, device: str, cfg: dict) -> None:
+    """One rank of the ``shard-mp`` line (started with ``spawn``): join
+    the group, shard the pipeline run at ``cfg`` over
+    ``make_search_mesh(device=device)`` and write the gathered result
+    through the checkpoint store."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import store
+    from repro_torch.parallel import init_distributed, make_search_mesh
+    from repro_torch.search import SearchConfig, shard_search_batch
+    import torch.distributed as dist
+    init_distributed(backend, init, world, rank)
+    m, ws, vl, la = SHARD_RUNS[0]
+    sc = SearchConfig(method=m, budget=cfg["budget"], lanes=cfg["lanes"],
+                      keep_tree=False,
+                      params=search_params(cfg, wave_select=ws,
+                                           vl_mode=vl, level_assign=la))
+    mesh = make_search_mesh(device=device)
+    res = shard_search_batch([make_domain(cfg)] * cfg["batch"], sc,
+                             draws_for(cfg, m, seed), mesh=mesh)
+    store.save(f"{out}/rank{rank}", 1, res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_shard_mp(dev):
+    """Two processes on ``cuda:0`` under gloo (NCCL refuses two ranks on
+    one card), or one rank per card under NCCL where there are two or
+    more, run ``shard_search_batch`` at FULL under ``make_search_mesh()``;
+    each writes its gathered result through ``repro_torch.checkpoint``,
+    held here against this process's own single-device run."""
+    import multiprocessing
+    import shutil
+    from repro_torch.checkpoint import store
+    from repro_torch.search import SearchConfig, search_batch
+    n = torch.cuda.device_count()
+    world, backend = (n, "nccl") if n >= 2 else (2, "gloo")
+    base = ROOT / "chiprun_out" / "shard_mp"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    seed = SHARD_SEED + 7
+    ctx = multiprocessing.get_context("spawn")
+    devs = [f"cuda:{r}" if backend == "nccl" else str(dev)
+            for r in range(world)]
+    procs = [ctx.Process(target=shard_mp_worker,
+                         args=(r, world, backend, f"file://{base}/rdv",
+                               str(base), seed, devs[r], FULL))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    secs = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0] * world:
+        fail(f"shard-mp: ranks exited {[p.exitcode for p in procs]}")
+    m, ws, vl, la = SHARD_RUNS[0]
+    sc = SearchConfig(method=m, budget=FULL["budget"], lanes=FULL["lanes"],
+                      keep_tree=False,
+                      params=search_params(FULL, wave_select=ws, vl_mode=vl,
+                                           level_assign=la))
+    want = search_batch([make_domain(FULL)] * FULL["batch"], sc,
+                        draws_for(FULL, m, seed), device=dev)
+    how = []
+    for r in range(world):
+        got = store.restore(f"{base}/rank{r}", 1, want)
+        how.append(hold_roots(f"shard-mp rank {r}", got, want))
+    say(f"shard-mp {world} processes under {backend} "
+        + ("(each on cuda:0, gathered through host copies)"
+           if backend == "gloo" else "(one rank per card)")
+        + f", {m}/{ws}/{vl}/{la} B={FULL['batch']}: every rank's gathered "
+        f"result == this process's single-device run (integers exact, "
+        f"value {'; '.join(sorted(set(how)))}); {secs:.1f} s for the ranks "
+        f"from spawn to exit")
+    return {"world": world, "backend": backend, "seconds": secs,
+            "equal": how}
+
+
+def phase_ft(dev):
+    """``ft_search_batch`` at FULL (pipeline/mega, FT_HOSTS hosts, chunks
+    of FT_CHUNK) without failure, with a killed host, a stalled host and a
+    driver stopped after one round and resumed from the checkpoint store
+    by a fresh driver; each merged result held per root to the
+    uninterrupted ``search_batch``, each report to what the injection
+    implies."""
+    import shutil
+    import numpy as np
+    from repro_torch.search import (ElasticSearchDriver, FTSearchConfig,
+                                    SearchConfig, search_batch)
+    m, ws, vl, la = SHARD_RUNS[0]
+    b, hosts, chunk = FULL["batch"], FT_HOSTS, FT_CHUNK
+    sc = SearchConfig(method=m, budget=FULL["budget"], lanes=FULL["lanes"],
+                      keep_tree=False,
+                      params=search_params(FULL, wave_select=ws, vl_mode=vl,
+                                           level_assign=la))
+    doms = [make_domain(FULL)] * b
+    draws = draws_for(FULL, m, SHARD_SEED + 11)
+    want, base_s = timed(lambda: search_batch(doms, sc, draws, device=dev))
+    per = b // hosts
+    ckpt = ROOT / "chiprun_out" / "ft_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def drive(what, ft, expect, max_rounds=None):
+        drv = ElasticSearchDriver(doms, sc, draws, ft, device=dev)
+        res, secs = timed(lambda: drv.run(max_rounds))
+        rep = drv.report
+        got = {"lost": rep.lost_hosts, "requeued": sorted(rep.requeued),
+               "resumed": sorted(rep.resumed),
+               "twice": [int(i) for i in np.nonzero(rep.runs == 2)[0]],
+               "never": [int(i) for i in np.nonzero(rep.runs == 0)[0]]}
+        for k, v in expect.items():
+            if got[k] != v:
+                fail(f"ft {what}: report {k} {got[k]}, the injection "
+                     f"implies {v}")
+        if res is None:
+            return drv, None, secs, None
+        return drv, res, secs, hold_roots(f"ft {what}", res, want)
+
+    stall_chunk = list(range(80, 96))       # host 2's second chunk
+    kill_chunk = list(range(per, per + chunk))    # host 1's first chunk
+    runs = {}
+    _, _, runs["none"], how = drive(
+        "no failure", FTSearchConfig(hosts=hosts, chunk=chunk),
+        {"lost": [], "requeued": [], "twice": [], "never": []})
+    hows = [how]
+    _, _, runs["kill"], how = drive(
+        "kill 37", FTSearchConfig(hosts=hosts, chunk=chunk,
+                                  kill_host_at_root=37),
+        {"lost": [1], "requeued": kill_chunk, "twice": kill_chunk})
+    hows.append(how)
+    _, _, runs["stall"], how = drive(
+        "stall 90", FTSearchConfig(hosts=hosts, chunk=chunk,
+                                   stall_host_at_root=90,
+                                   watchdog_s=FT_WATCHDOG_S),
+        {"lost": [2], "requeued": stall_chunk, "twice": stall_chunk})
+    hows.append(how)
+    # two rounds of 4 hosts x 16 finish all 128 roots: stop after one
+    ft = FTSearchConfig(hosts=hosts, chunk=chunk, ckpt_dir=str(ckpt),
+                        ckpt_keep=2)
+    first = [i for h in range(hosts) for i in range(h * per, h * per + chunk)]
+    d1, res1, runs["stopped"], _ = drive("stopped", ft, {"lost": []}, 1)
+    if res1 is not None or sorted(np.nonzero(d1._done)[0].tolist()) != first:
+        fail("ft stopped: max_rounds=1 did not stop after one round")
+    _, _, runs["resumed"], how = drive(
+        "resumed", ft, {"resumed": first, "never": first, "twice": []})
+    hows.append(how)
+    say(f"ft hosts={hosts} chunk={chunk} {m}/{ws}/{vl}/{la} "
+        f"B={b}: no failure, kill at root 37 (host 1 lost, its chunk "
+        f"32-47 requeued), stall at root 90 (watchdog {FT_WATCHDOG_S} s; "
+        f"host 2 lost, 80-95 requeued), stopped after 1 round and resumed "
+        f"by a fresh driver ({len(first)} roots from the checkpoint): every "
+        f"merged root == search_batch (integers exact, value "
+        f"{'; '.join(sorted(set(hows)))}); driver {runs['none']:.3f} s "
+        f"without failure vs search_batch {base_s:.3f} s")
+    return {"seconds": runs, "search_batch_s": base_s, "equal": hows}
+
+
+def phase_lm_shard(dev, params):
+    """smollm-135m at LM_FULL through ``make_batched_searcher`` over an
+    in-process mesh of LM_SHARD_ENTRIES entries on ``cuda:0``: 16 slots
+    padded to 18, two dead.  Stateless and with ``kv_splice`` +
+    ``tree_reuse``, LM_SHARD_TOKENS tokens each; the tokens must equal
+    the unsharded searcher's at batch 18 whose two extra rows are zero
+    (length 0, never admitted), in this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import mesh_from_devices
+    from repro_torch.serving import make_batched_searcher
+    cfg, lm = get_config(LM_ARCH), LM_FULL
+    _, buf, lens = lm_buffers(cfg, lm, dev)
+    b = lm["batch"]
+    pad = (-b) % LM_SHARD_ENTRIES
+    mesh = mesh_from_devices([dev] * LM_SHARD_ENTRIES)
+    out = {}
+    for name, knobs in (("stateless", {}),
+                        ("kv_splice+tree_reuse",
+                         dict(kv_splice=True, tree_reuse=True))):
+        dc = lm_dcfg(lm, **knobs)
+        sh = make_batched_searcher(cfg, params, dc, b, mesh=mesh)
+        one = make_batched_searcher(cfg, params, dc, b + pad, device=dev)
+        sbuf, slens = buf.clone(), lens.clone()
+        obuf = torch.cat([buf, buf.new_zeros((pad, buf.shape[1]))])
+        olens = torch.cat([lens, lens.new_zeros((pad,))])
+        carries = None
+        if knobs:
+            carries = [sh.init_carry(buf.shape[1]),
+                       one.init_carry(buf.shape[1])]
+            for i in range(b):
+                carries = [s.admit(c, i, buf[i], int(lens[i]))
+                           for s, c in zip((sh, one), carries)]
+        times = [0.0, 0.0]
+        rows = torch.arange(b, device=dev)
+        for t in range(LM_SHARD_TOKENS):
+            if knobs:
+                (st, carries[0]), ss = timed(
+                    lambda: sh.step(sbuf, slens, t, carries[0]))
+                (ot, carries[1]), os_ = timed(
+                    lambda: one.step(obuf, olens, t, carries[1]))
+            else:
+                st, ss = timed(lambda: sh(sbuf, slens, t))
+                ot, os_ = timed(lambda: one(obuf, olens, t))
+            times[0] += ss
+            times[1] += os_
+            if st.tolist() != ot[:b].tolist():
+                fail(f"lm-shard {name} token {t}: sharded {st.tolist()} != "
+                     f"unsharded {ot[:b].tolist()}")
+            sbuf[rows, slens.long()] = st
+            obuf[rows, olens[:b].long()] = st
+            slens = slens + 1
+            olens = torch.cat([olens[:b] + 1, olens[b:]])
+        out[name] = {"seconds_sharded": times[0], "seconds_single": times[1]}
+        del sh, one, carries
+    say(f"lm-shard {cfg.name} {b} slots padded to {b + pad} over "
+        f"{LM_SHARD_ENTRIES}x{dev} ({pad} dead): stateless and "
+        f"kv_splice+tree_reuse, {LM_SHARD_TOKENS} tokens each == the "
+        f"unsharded searcher at batch {b + pad}; " + "; ".join(
+            f"{k} {v['seconds_sharded']:.2f} s sharded vs "
+            f"{v['seconds_single']:.2f} s" for k, v in out.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving engine on the recurrent families: rwkv6-1.6b and zamba2-1.2b
 # ---------------------------------------------------------------------------
 REC_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
@@ -2820,15 +3167,26 @@ def main() -> int:
         "tokens_per_s": lm_run["tokens_per_s"]}, card)
     for k, e in lm_carry["attn_err"].items():
         attn[k]["max_abs_err"] = max(attn[k]["max_abs_err"], e)
+    # the sharded paths, before any tracing
+    torch.cuda.synchronize()
+    reset_launches()
+    shard = {"shard": phase_shard(dev), "shard_mp": phase_shard_mp(dev),
+             "ft": phase_ft(dev), "lm_shard": phase_lm_shard(dev, lm_params)}
+    torch.cuda.synchronize()
+    shard_counts = all_launches()          # read just after them
+    for k in ("bes", "se", "se_running", "b", "decode_attention",
+              "flash_attention_bf16"):
+        if shard_counts[k] == 0:
+            fail(f"kernel {k} was not launched on the sharded paths")
     lm_prof = phase_lm_profile(dev, lm_params)
     del lm_params, lm_first
     torch.cuda.empty_cache()
     rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
     prof = phase_profile(dev)
     # launches on the main paths: the float32 smoke runs, P-game, LM
-    # decode cold and with the carries, the engines
+    # decode cold and with the carries, the sharded paths, the engines
     paths = (small_counts, counts, lm_run["launches"], lm_carry["launches"],
-             rec_counts)
+             shard_counts, rec_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
@@ -2886,6 +3244,7 @@ def main() -> int:
               "full_runs": runs, "launch_counts": counts, "profile": prof,
               "lm_full": lm_run, "lm_profile": lm_prof,
               "carry_small": carry_small, "lm_carry": lm_carry,
+              "shard": shard, "launches_shard": shard_counts,
               "rec_kernels": rec_kern, "rec_attn_zamba2": rec_attn,
               "rec_carry": rec_carry_, "rec_crossover": rec_cross,
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,

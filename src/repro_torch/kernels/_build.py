@@ -12,11 +12,16 @@ built with contraction into FMAs: their checks allow for the order of the
 sums.
 
 ``build_all()`` compiles every source at once, one ``nvcc`` process per
-source.  A library is rebuilt when a source it depends on is newer.
+source.  A library is rebuilt when a source it depends on is newer.  Builds
+hold a thread lock and an ``fcntl`` lock on ``BUILD_DIR/build.lock``, so
+that the ranks of a multi-process job that build at first use do not race
+(the kernel releases the file lock when a process dies).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -80,6 +85,19 @@ def use_defines(defines: List[str], build_dir: Path) -> None:
     BUILD_DIR, DEFINES = Path(build_dir), list(defines)
 
 
+@contextlib.contextmanager
+def _locked():
+    """This thread and process alone build into ``BUILD_DIR``."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "build.lock", "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _start(name: str) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
@@ -103,7 +121,7 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
 def build_all(force: bool = False) -> Dict[str, str]:
     """Compile every stale source in parallel; returns ``{name: nvcc log}``
     for the sources built."""
-    with _lock:
+    with _locked():
         names: List[str] = [s for s in SOURCES if force or _stale(s)]
         procs = {s: _start(s) for s in names}
         return {s: _finish(s, p) for s, p in procs.items()}
@@ -114,7 +132,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    with _lock:
+    with _locked():
         if name not in _libs:
             if _stale(name):
                 proc = _start(name)

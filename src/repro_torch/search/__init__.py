@@ -12,6 +12,13 @@ Entry points
     search_stacked(domain, B, cfg, rng, device=None)
                                                    the same over one domain
                                                    already stacked over B
+    search_batch(..., mesh=)                       sharded over a SearchMesh
+                                                   (repro_torch.parallel)
+    shard_search_batch / shard_search_keys         the explicit sharded form
+                                                   (in-process or across
+                                                   processes)
+    ft_search_batch / ElasticSearchDriver          the elastic fault-tolerant
+                                                   driver (requeue-and-shrink)
 Configuration
     SearchConfig    method/budget/lanes/max_nodes/keep_tree + ``params``
     SearchParams    cp, vl_weight, max_depth, puct, vl_mode, kernels
@@ -30,12 +37,18 @@ from repro_torch.search.api import (STATS_KEYS, SearchConfig,  # noqa: F401
                                     search, search_batch, search_stacked)
 from repro_torch.search.domain import (Domain, SupportsPriors,  # noqa: F401
                                        check_domain)
+from repro_torch.search.sharding import (shard_search_batch,  # noqa: F401
+                                         shard_search_keys)
+from repro_torch.search.ft import (ElasticSearchDriver,  # noqa: F401
+                                   FTReport, FTSearchConfig, ft_search_batch)
 from repro_torch.search import strategies  # noqa: F401  (built-ins)
 
 __all__ = [
     "STATS_KEYS", "SearchConfig", "SearchParams", "SearchResult",
     "Domain", "SupportsPriors", "check_domain", "draws_shape",
-    "search", "search_batch", "search_stacked",
+    "search", "search_batch", "search_stacked", "shard_search_batch",
+    "shard_search_keys", "ElasticSearchDriver", "FTReport",
+    "FTSearchConfig", "ft_search_batch",
     "get_strategy", "list_strategies", "register_strategy",
     "strategies",
 ]

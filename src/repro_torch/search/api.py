@@ -20,7 +20,9 @@ and ``(B,) + draws_shape(domain, cfg)`` for ``search_batch``, or a seed /
 seed gives the same search on every device).
 
 ``search_batch`` runs B searches (each under its own draws) as one batched
-program: every arena plane carries a leading batch axis.  The B domains are
+program: every arena plane carries a leading batch axis; with a mesh
+(``repro_torch.parallel.mesh``) the batch is split over its devices and
+processes (``search.sharding``).  The B domains are
 of one class and may differ in tensor-valued fields only (a decode
 request's prompt and its length); those are stacked, as the JAX package
 stacks them, into ONE domain whose ``root_state()`` returns the B roots'
@@ -44,7 +46,8 @@ from repro_torch.search.domain import Domain, missing_members
 __all__ = [
     "STATS_KEYS", "SearchConfig", "SearchResult", "StrategyFn",
     "register_strategy", "get_strategy", "list_strategies", "draws_shape",
-    "make_stats", "result_from_tree", "resolve_device", "search",
+    "make_stats", "result_from_tree", "resolve_device", "resolve_mesh",
+    "search",
     "search_batch", "search_stacked",
 ]
 
@@ -170,15 +173,23 @@ def result_from_tree(tree: Tree, stats, extras=None) -> SearchResult:
 # entry points
 # ---------------------------------------------------------------------------
 def resolve_device(device=None) -> torch.device:
-    """``cuda:0`` by default; raises when there is no CUDA device and the
-    caller did not ask for one explicitly."""
+    """``cuda:0`` by default, or inside an initialised process group of
+    world size > 1 the rank's own card, ``cuda:$LOCAL_RANK`` (default:
+    the rank); raises when there is no such CUDA device and the caller
+    did not ask for one explicitly."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("repro_torch runs on a CUDA device by default and "
                            "none is available; pass device='cpu' to run the "
                            "plain PyTorch versions on the CPU")
-    return torch.device("cuda", 0)
+    from repro_torch.parallel.mesh import local_rank
+    idx = local_rank()
+    if idx >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {idx} has no card of its own "
+                           f"({torch.cuda.device_count()} visible); pass "
+                           "device= explicitly")
+    return torch.device("cuda", idx)
 
 
 def _draws(domain, cfg, rng, lead: tuple, device) -> torch.Tensor:
@@ -245,7 +256,7 @@ def search(domain, cfg: SearchConfig, rng, *, device=None) -> SearchResult:
 
 
 def search_batch(domains: Sequence[Any], cfg: SearchConfig, rng, *,
-                 device=None) -> SearchResult:
+                 device=None, mesh=None) -> SearchResult:
     """B searches, each under its own draws, as one batched program; every
     result leaf gains a leading batch axis.  With draw tensors,
     ``search_batch(ds, cfg, draws)[i] == search(ds[i], cfg, draws[i])``.
@@ -255,13 +266,49 @@ def search_batch(domains: Sequence[Any], cfg: SearchConfig, rng, *,
     stacked on a new leading axis, and in carried ``TreeArena``s of batch
     one (``root_arena``), which are concatenated along their batch axis;
     fields that differ otherwise (``num_actions``, depths, seeds) raise
-    TypeError."""
+    TypeError.
+
+    Mesh: a ``SearchMesh`` (``repro_torch.parallel.mesh``) shards the
+    batch over its entries (``shard_search_batch``); ``False`` forces one
+    device; ``None`` shards only inside an initialised process group of
+    world size > 1 with B > 1, over ``make_search_mesh(device=device)``.
+    The JAX package auto-shards whenever ``jax.device_count() > 1``, the
+    devices its one program drives; the devices this program drives are
+    those of its process group, one process per device, since one
+    process driving several devices in turn pays each one's host time."""
     domains = list(domains)
     if not domains:
         raise ValueError("search_batch needs at least one domain")
     _check(domains[0])
+    mesh = resolve_mesh(mesh, len(domains), device)
+    if mesh is not None:
+        from repro_torch.search.sharding import shard_search_batch
+        return shard_search_batch(domains, cfg, rng, mesh=mesh)
     dom, stacked = _batch_domains(domains)
     return _search_b(dom, stacked, len(domains), cfg, rng, device)
+
+
+def resolve_mesh(mesh, batch: int, device=None):
+    """The mesh rule shared by ``search_batch`` and the serving searchers:
+    ``None`` auto-shards over ``make_search_mesh(device=device)`` inside
+    an initialised process group of world size > 1 when ``batch > 1``,
+    ``False`` forces one device (returns None), a ``SearchMesh`` is
+    returned as it is; anything else raises TypeError."""
+    from repro_torch.parallel.mesh import (SearchMesh, make_search_mesh,
+                                           process_count)
+    if mesh is None:
+        if batch > 1 and process_count() > 1:
+            return make_search_mesh(device=device)
+        return None
+    if mesh is False:
+        return None
+    if not isinstance(mesh, SearchMesh):
+        raise TypeError(f"mesh must be None, False or a SearchMesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None:
+        raise ValueError("pass a device or a mesh, not both: a mesh names "
+                         "its own devices")
+    return mesh
 
 
 def search_stacked(domain, batch: int, cfg: SearchConfig, rng, *,

@@ -28,8 +28,13 @@ Two per-slot decode modes (``EngineConfig.decode``):
   step.  Eviction needs no call: readmission overwrites the slot.
 
 Runs on ``cuda:0`` unless ``device`` is given; ``params`` are moved there
-once.  ``EngineConfig.mesh`` takes ``None`` or ``False`` (one device):
-multi-device search is not ported (ROADMAP Queue 1 item 3).
+once.  ``EngineConfig.mesh`` shards the mcts searcher's slots over a
+``repro_torch.parallel.SearchMesh`` (``MeshSearcher``; the engine then
+runs on ``mesh.home`` unless ``device`` is given); ``False`` pins it to
+one device, and ``None`` shards only inside an initialised process group
+of world size > 1.  In a process group every process runs the same
+engine in lockstep (the scheduler is deterministic), searches its own
+slots and gathers the tokens.
 """
 from __future__ import annotations
 
@@ -40,9 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.base import ModelConfig, get_family, tree_to
+from repro_torch.parallel.mesh import SearchMesh
 from repro_torch.search.api import resolve_device
 from repro_torch.serving.mcts_decode import (MCTSDecodeConfig,
-                                             ReusableSearcher,
                                              make_batched_searcher)
 from repro_torch.serving.scheduler import Evict, Request, RequestScheduler
 from repro_torch.serving.stats import ServingStats, percentile
@@ -58,23 +63,28 @@ class EngineConfig:
     decode: str = "greedy"             # "greedy" | "mcts"
     policy: str = "fcfs"               # admission policy: "fcfs" | "spf"
     mcts: Optional[MCTSDecodeConfig] = None   # knobs for decode="mcts"
-    mesh: Any = None                   # None / False: one device
+    # decode="mcts" mesh: None shards inside a process group of world
+    # size > 1, False pins one device, or an explicit SearchMesh
+    mesh: Any = None
 
 
 class ServingEngine:
-    """Single-device continuous batching over the family's model steps."""
+    """Continuous batching over the family's model steps."""
 
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
                  stats: Optional[ServingStats] = None, *, device=None):
-        if engine_cfg.mesh is not None and engine_cfg.mesh is not False:
-            raise NotImplementedError(
-                "an explicit mesh shards the search across devices, which "
-                "the port does not have yet (ROADMAP Queue 1 item 3)")
+        mesh = engine_cfg.mesh
+        if not (mesh is None or mesh is False
+                or isinstance(mesh, SearchMesh)):
+            raise TypeError(f"EngineConfig.mesh must be None, False or a "
+                            f"SearchMesh, got {type(mesh).__name__}")
         if engine_cfg.decode not in ("greedy", "mcts"):
             raise ValueError(f"unknown decode mode {engine_cfg.decode!r}")
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.device = resolve_device(device)
+        explicit = isinstance(mesh, SearchMesh)
+        self.device = (mesh.home if explicit and device is None
+                       else resolve_device(device))
         self.params = tree_to(params, self.device)
         self.fam = get_family(cfg)
         b, s = engine_cfg.max_batch, engine_cfg.max_seq
@@ -93,8 +103,9 @@ class ServingEngine:
             self.prefix_len = np.zeros((b,), np.int32)
             self._searches = 0         # seeds each search's (empty) draws
             self._mcts_search = make_batched_searcher(
-                cfg, self.params, self.mcfg, batch=b, device=self.device)
-            if isinstance(self._mcts_search, ReusableSearcher):
+                cfg, self.params, self.mcfg, batch=b,
+                device=None if explicit else self.device, mesh=mesh)
+            if self.mcfg.stateful:
                 self._carry = self._mcts_search.init_carry(s)
 
     # -- request intake ----------------------------------------------------

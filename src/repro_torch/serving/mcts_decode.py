@@ -1,5 +1,5 @@
 """MCTS-guided decoding on ``repro_torch.search`` — the counterpart of
-``repro.serving.mcts_decode``, on one device.
+``repro.serving.mcts_decode``.
 
 For each emitted token, one search (any registered strategy, default the
 paper's pipeline) explores the top-A continuations: Select / Expand /
@@ -29,7 +29,13 @@ Cross-token carries (``ReusableSearcher``, returned by
 * ``tree_reuse`` — each slot's searched arena is rerooted on the
   committed child and spliced in as the next search's starting tree.
 
-Multi-device meshes are not ported (ROADMAP Queue 1 item 3).
+Multi-device (``mesh=``, a ``repro_torch.parallel.SearchMesh``): the
+slots are padded to a multiple of the mesh's entries, and the pad rows
+ride along as permanently dead slots (length 0).  Each entry searches
+its own contiguous block of slots on its device (``MeshSearcher``), with
+``params`` placed once on each distinct device; every carry leaf stays
+with the entry that owns its slots, and only the chosen tokens are
+gathered.
 """
 from __future__ import annotations
 
@@ -44,11 +50,12 @@ from repro_torch.core.domains.lm_decode import (CachedLMDecodeDomain,
 from repro_torch.core.tree import reroot, reroot_ok
 from repro_torch.models.base import (ModelConfig, seq_prefill, seq_step,
                                      tree_to)
+from repro_torch.parallel.mesh import SearchMesh, gather_rows
 from repro_torch.search import SearchConfig, SearchParams, search_stacked
-from repro_torch.search.api import resolve_device
+from repro_torch.search.api import _draws, resolve_device, resolve_mesh
 
-__all__ = ["MCTSDecodeConfig", "ReusableSearcher", "make_batched_searcher",
-           "mcts_decode", "mcts_decode_batch"]
+__all__ = ["MCTSDecodeConfig", "MeshSearcher", "ReusableSearcher",
+           "make_batched_searcher", "mcts_decode", "mcts_decode_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,14 +283,18 @@ class ReusableSearcher:
 
 
 def make_batched_searcher(cfg: ModelConfig, params, dcfg: MCTSDecodeConfig,
-                          batch: int, *, device=None):
+                          batch: int, *, device=None, mesh=None):
     """The per-token batched searcher.  Stateless (default): ``step(buf [B,
     buf_len] i32, lens [B] i32, rng=0) -> [B] i32``, each slot's chosen
     next token.  With ``dcfg.kv_splice`` or ``dcfg.tree_reuse``: a
     ``ReusableSearcher``, whose ``step`` also threads the carry.  ``rng``
     seeds the playout draws (the LM playout is greedy and draws none).
     Runs on ``cuda:0`` unless ``device`` is given; ``params`` are moved
-    there once."""
+    there once.  ``mesh`` as for ``search_batch`` (``resolve_mesh``): a
+    ``SearchMesh`` gives a ``MeshSearcher`` with the same interface."""
+    mesh = resolve_mesh(mesh, batch, device)
+    if mesh is not None:
+        return MeshSearcher(cfg, params, dcfg, batch, mesh)
     if dcfg.stateful:
         return ReusableSearcher(cfg, params, dcfg, batch, device=device)
     dev = resolve_device(device)
@@ -299,6 +310,81 @@ def make_batched_searcher(cfg: ModelConfig, params, dcfg: MCTSDecodeConfig,
             .to(torch.int32)
 
     return step
+
+
+class MeshSearcher:
+    """The per-token searcher over a ``SearchMesh``, stateless or with the
+    carry (``init_carry`` / ``admit`` / ``step``, as ``ReusableSearcher``).
+
+    The ``batch`` slots are padded to ``padded``, a multiple of the
+    mesh's entries; pad rows are searched as dead slots (length 0, never
+    admitted) and their tokens dropped.  Entry i owns slots ``[i * blk,
+    (i + 1) * blk)`` and searches them with its own single-device searcher
+    on its device; the parameters are placed once per distinct device.
+    The carry maps each of this process's entries to that searcher's
+    carry, which stays on the entry's device.  Draws are made for the
+    ``padded`` rows from ``rng`` and split by block, so pad rows consume
+    their own (as in the JAX package).  Only the tokens are gathered, to
+    ``mesh.home`` in every process of the mesh.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, dcfg: MCTSDecodeConfig,
+                 batch: int, mesh: SearchMesh):
+        self.cfg, self.params, self.dcfg, self.batch = cfg, params, dcfg, \
+            batch
+        self.mesh = mesh
+        self.padded = batch + (-batch) % mesh.size
+        self.blk = self.padded // mesh.size
+        self.scfg = dcfg.search_config()
+        placed = {}
+        self.parts = {}
+        for i, e in mesh.local():
+            if e.device not in placed:
+                placed[e.device] = tree_to(params, e.device)
+            self.parts[i] = make_batched_searcher(
+                cfg, placed[e.device], dcfg, self.blk, device=e.device,
+                mesh=False)
+
+    def _blocks(self, buf, lens, rng):
+        """Per local entry: ``(entry device, rows, buf, lens, draws)`` of
+        its block of the padded slots."""
+        buf = torch.as_tensor(buf).to(torch.int32)
+        lens = torch.as_tensor(lens).to(torch.int32)
+        if buf.shape[0] != self.batch:
+            raise ValueError(f"searcher built for {self.batch} slots, got "
+                             f"{buf.shape[0]}")
+        extra = self.padded - self.batch
+        if extra:
+            buf = torch.cat([buf, buf.new_zeros((extra, buf.shape[1]))])
+            lens = torch.cat([lens, lens.new_zeros((extra,))])
+        dom = _domain(self.cfg, self.params, buf, self.dcfg,
+                      prompt_len=lens)
+        draws = _draws(dom, self.scfg, rng, (self.padded,),
+                       torch.device("cpu"))
+        for i in self.parts:
+            dev = self.mesh.entries[i].device
+            rows = slice(i * self.blk, (i + 1) * self.blk)
+            yield i, buf[rows].to(dev), lens[rows].to(dev), draws[rows]
+
+    def __call__(self, buf, lens, rng=0):
+        local = {i: self.parts[i](b, n, d)
+                 for i, b, n, d in self._blocks(buf, lens, rng)}
+        return gather_rows(self.mesh, local, self.batch)
+
+    def init_carry(self, buf_len: int) -> dict:
+        return {i: p.init_carry(buf_len) for i, p in self.parts.items()}
+
+    def admit(self, carry: dict, slot: int, buf_row, plen: int) -> dict:
+        i, j = divmod(int(slot), self.blk)
+        if i in self.parts:
+            carry[i] = self.parts[i].admit(carry[i], j, buf_row, plen)
+        return carry
+
+    def step(self, buf, lens, rng, carry: dict):
+        local = {}
+        for i, b, n, d in self._blocks(buf, lens, rng):
+            local[i], carry[i] = self.parts[i].step(b, n, d, carry[i])
+        return gather_rows(self.mesh, local, self.batch), carry
 
 
 def _pad_prompts(prompts, n_tokens: int):
@@ -330,16 +416,20 @@ def _pad_prompts(prompts, n_tokens: int):
 
 def mcts_decode_batch(cfg: ModelConfig, params, prompts, n_tokens: int,
                       dcfg: MCTSDecodeConfig, seed: int = 0, *,
-                      device=None) -> List[List[int]]:
+                      device=None, mesh=None) -> List[List[int]]:
     """Decode B prompts together: each of the ``n_tokens`` steps is one
     batched multi-root search over all requests.  ``prompts`` is ``[B,
     plen]`` or a ragged list of 1-D token sequences.  With ``kv_splice`` /
     ``tree_reuse`` the carry is threaded across the tokens: every prompt
-    is admitted (prefilled once) up front."""
+    is admitted (prefilled once) up front.  ``mesh`` as in
+    ``make_batched_searcher``; the buffers then live on ``mesh.home``."""
     buf, lens = _pad_prompts(prompts, n_tokens)
     b = buf.shape[0]
-    searcher = make_batched_searcher(cfg, params, dcfg, b, device=device)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, b, device)
+    dev = mesh.home if mesh is not None else resolve_device(device)
+    searcher = make_batched_searcher(
+        cfg, params, dcfg, b, device=None if mesh is not None else dev,
+        mesh=mesh if mesh is not None else False)
     buf_t = torch.from_numpy(buf).to(dev)
     lens_t = torch.from_numpy(lens).to(dev)
     rows = torch.arange(b, device=dev)

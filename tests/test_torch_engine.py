@@ -209,8 +209,8 @@ def test_engine_shrink_requeues_and_keeps_serving(pair):
 
 def test_engine_rejects_what_it_cannot_run(pair):
     """Unknown decode modes and oversized prompts raise ValueError, as in
-    the JAX package; explicit meshes raise NotImplementedError (not
-    ported)."""
+    the JAX package; a mesh that is neither None, False nor a SearchMesh
+    raises TypeError."""
     (_, _), (tc, tp) = pair
     mk = lambda **kw: TS.ServingEngine(tc, tp, TS.EngineConfig(**kw),
                                        device="cpu")
@@ -221,6 +221,6 @@ def test_engine_rejects_what_it_cannot_run(pair):
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(TS.Request(uid=0, prompt=np.arange(9, dtype=np.int32),
                               max_new_tokens=1))
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(TypeError, match="SearchMesh"):
         mk(max_batch=2, mesh=object())
     assert mk(max_batch=1, mesh=False).mode == "greedy"
