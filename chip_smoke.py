@@ -31,7 +31,12 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               LM path's full-size shapes in bf16 and small shapes in
               float32 (the float32 K4 also at D 16 / 20, ragged Sq,
               ``seq_k_valid`` < Sk, rows with no key); times beside
-              PyTorch's SDPA
+              PyTorch's SDPA.  Line ``attn-mla``: K4 at deepseek-v2-lite's
+              MLA prefill shape (q/k head dim 192, v 128; the bf16 row
+              ``flash_attention_bf16_mla``) at S 65 / 130 / 384, each
+              within ``rounded_p_limit`` with a planted fault above it,
+              and in float32 at the smoke shape (24 / 16); timed at S 384
+              beside SDPA
   5. rec-kernels  the recurrent kernels (K5 WKV6, K6 SSD) against their
               sequential plain versions at rwkv6-1.6b / zamba2-1.2b widths
               in bf16 at the engine's prefill, decode and mcts-forward
@@ -52,7 +57,13 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               smollm / rwkv6 / zamba2 smoke, card == CPU (line
               ``carry-small``); the float32 K4's main path:
               its launches tallied by path, shape and knobs, each shape
-              held to the plain version, each path's busiest timed
+              held to the plain version, each path's busiest timed;
+              ``families-small``: the MoE (deepseek-v2-lite, grok-1),
+              VLM (internvl2) and Whisper smoke configs, card == CPU
+              (prefill + 3 decode_steps, logits_fn / multimodal_logits,
+              the greedy engine, the MoE's mcts_decode_batch through the
+              generic fallback), each card call's K4 / K3 launches held
+              to what its path implies
   7. full     the P-game main path at full size (FULL below): pipeline /
               tree with the fused wave and the lockstep select, both
               vl_modes and both level_assigns; the LM main path (LM_FULL:
@@ -95,11 +106,32 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               ``kv_splice`` + ``tree_reuse``, 2 tokens each, equal to the
               unsharded searcher at batch 18 with two zero rows.  Their
               launches join the kernels line's totals
+  7c. families  after the engines, each its own line: ``moe-full``:
+              deepseek-v2-lite-16b at its published width (random bf16
+              weights drawn on the card), the greedy engine (MOE_GREEDY)
+              and ``mcts_decode_batch`` (MOE_MCTS), launches held (27 MLA
+              K4 a prefill), the admissions' K4 launches and those of the
+              search's first forward at each [rows, S] (B > 1) held to
+              ``rounded_p_limit`` on their own operands, prefill-then-step
+              at moe_capacity 100 within FAM_STEP_TOL (zeroed latents and
+              a step one position late or early above it; the routing of
+              both paths compared layer by layer), tokens/s, TTFT, peak
+              memory; ``vlm-full``:
+              internvl2-2b's ``multimodal_logits`` (4 x (256 patches + 128
+              tokens)) and greedy engine, K4 / K3 held to their plain
+              versions on their own operands; ``whisper-full``:
+              whisper-base prefill on 4 x 1500 frames + 32 decode_steps,
+              K4 (encoder, decoder, cross) and K3 held likewise,
+              prefill-then-step within FAM_STEP_TOL (planted faults as
+              for the MoE above it).  grok-1-314b runs at
+              its smoke config only (~628 GB of bf16 weights)
   8. profile  device busy share and time by kernel of the fused P-game
               runs, one LM token's search and one engine step of each
               recurrent run (torch.profiler), tables in
               ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
-              ``profile_rec.txt``
+              ``profile_rec.txt``; deepseek-v2-lite-16b's engine step and
+              384-token prefill (traced inside ``moe-full``) in
+              ``profile_fam.txt``
   9. report   the wrappers' host cost, the kernels' JSON line, the card
               line, the last line.  K1a / K1b have two rows each: ``se`` /
               ``bes`` timed on the loss/independent snapshot and
@@ -918,7 +950,8 @@ def phase_full(dev):
                                        .float().mean())})
     counts = all_launches()                # read just after the main path
     for k, v in counts.items():
-        if v == 0 and k in SOURCES and k not in LM_KERNELS + REC_KERNELS:
+        if v == 0 and k in SOURCES \
+                and k not in LM_KERNELS + REC_KERNELS + FAM_KERNELS:
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
@@ -1132,9 +1165,10 @@ def sdpa_fn(q, k, v, **kw):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
 
 
-def fa_cases(q, k, v, causal=True):
+def fa_cases(q, k, v, causal=True, before=True):
     """K4 at one shape: the kernel, its plain version, SDPA and (with
-    ``--before``) the parent's kernel, for ``time_turns``.  Prefill's q,
+    ``--before``, unless ``before`` is False: a shape the parent's kernel
+    does not take) the parent's kernel, for ``time_turns``.  Prefill's q,
     k and v are written by the projection just before, so they are not
     rotated."""
     from repro_torch.kernels.flash_attention import ops as FA
@@ -1145,7 +1179,7 @@ def fa_cases(q, k, v, causal=True):
              "sdpa_ms": (lambda _: sdpa_fn(
                  q, k, v, is_causal=causal,
                  enable_gqa=k.shape[2] != q.shape[2]), {})}
-    if BEFORE:
+    if BEFORE and before:
         cases["before_ms"] = (lambda _: BEFORE[
             "flash_attention"].flash_attention(q, k, v, causal=causal), {})
     return cases
@@ -1823,28 +1857,31 @@ def attn_capture(calls: list, keep):
 def carry_k4_check(what, calls) -> dict:
     """The bf16 K4's launches of the admission prefills (``attn_capture``),
     each output held to ``rounded_p_limit`` on its own operands and knobs
-    and set beside the plain version in bf16; on the first, a planted
-    fault (the diagonal one position late) must read above the limit."""
+    and set beside the plain version in bf16; on the first causal one, a
+    planted fault (the diagonal one position late) must read above the
+    limit."""
     from repro_torch.kernels.flash_attention import ops as FA
     out = {"calls": len(calls), "limit_share": 0.0, "max_abs_err": 0.0,
            "shapes": sorted({str(list(q.shape)) for q, *_ in calls})}
+    first = next(i for i, c in enumerate(calls) if c[2].get("causal", True))
     for i, (q, (k, v), kw, got) in enumerate(calls):
-        planted = None if i else FA.flash_attention(
+        planted = None if i != first else FA.flash_attention(
             q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) + 1))
         r = rounded_check(what, got, q, k, v, planted=planted, **kw)
         out["limit_share"] = max(out["limit_share"], r["limit_share"])
-        out.setdefault("planted_share", r.get("planted_share"))
+        if planted is not None:
+            out["planted_share"] = r["planted_share"]
         out["max_abs_err"] = max(out["max_abs_err"], max_diff(
             got, FA.flash_attention(q, k, v, impl="ref", **kw)))
     return out
 
 
 def carry_k3_check(what, calls) -> dict:
-    """K3's launches of one commit step (``attn_capture``), each output
-    held against the plain version on its own operands in bf16 and in
-    float32 (``bf16_check``); then the first layer's operands again with
-    valid lengths from 0 to Sk, so that the split-K route meets empty and
-    one-tile splits at the commit's shape."""
+    """K3's launches of one step (``attn_capture``), each output held
+    against the plain version on its own operands in bf16 and in float32
+    (``bf16_check``); then the first layer's operands again with valid
+    lengths from 0 to Sk, so that the split-K route meets empty and
+    one-tile splits at the step's shape."""
     from repro_torch.kernels.decode_attention import ops as DA
     out = {"calls": len(calls), "bf16": 0.0, "f32_limit_share": 0.0}
     for q, (k, v, vl), _, got in calls:
@@ -1857,8 +1894,8 @@ def carry_k3_check(what, calls) -> dict:
                                      r["f32_limit_share"])
     q, (k, v, vl), _, _ = calls[0]
     n, s = q.shape[0], k.shape[1]
-    edge = [0, 1, 2, 31, 32, 33, 63, 64, 65, 95, 137, 138, 139, 200,
-            s - 1, s]
+    edge = [e for e in (0, 1, 2, 31, 32, 33, 63, 64, 65, 95, 137, 138, 139,
+                        200) if e < s - 1] + [s - 1, s]
     ve = torch.tensor((edge * -(-n // len(edge)))[:n], dtype=torch.int32,
                       device=q.device)
     r = bf16_check(what + " edge lengths", DA.decode_attention(q, k, v, ve),
@@ -3077,6 +3114,738 @@ def rec_profile(cfg, params, dev, lines) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the other families: MoE (MLA; soft-capped GQA), VLM, Whisper
+# ---------------------------------------------------------------------------
+MOE_ARCH = "deepseek-v2-lite-16b"
+VLM_ARCH = "internvl2-2b"
+WHISPER_ARCH = "whisper-base"
+FAM_SMALL_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b", "internvl2-2b",
+                   "whisper-base")
+FAM_SEED = 0
+FAM_KERNELS = ("flash_attention_bf16_mla",)   # run by the MoE paths only
+# deepseek-v2-lite-16b at its published width: 16 requests with ragged
+# prompts of 64-384 tokens over 8 slots (refill), 16 new tokens each
+MOE_GREEDY = dict(max_batch=8, max_seq=512, requests=16, prompt_min=64,
+                  prompt_max=384, new_tokens=16, policy="fcfs")
+# mcts_decode_batch: 2 prompts, 2 tokens, every step a full forward
+# prefill-then-step at capacity 100: token draws [4, 129], each checked
+MOE_STEP_DRAWS = 5
+MOE_MCTS = dict(requests=2, prompt_min=64, prompt_max=128, new_tokens=2,
+                num_actions=4, budget=8, lanes=4, search_depth=2,
+                rollout_len=2)
+# internvl2-2b: multimodal_logits on 4 x (256 patches + 128 tokens); the
+# greedy engine on 8 requests x 16 tokens
+VLM_MM = dict(batch=4, text=128)
+VLM_GREEDY = dict(max_batch=8, max_seq=512, requests=8, prompt_min=64,
+                  prompt_max=256, new_tokens=16, policy="fcfs")
+# whisper-base: 4 x 1500 frames and 32-token prompts, then 32 greedy
+# decode_steps
+WHISPER_RUN = dict(batch=4, prompt=32, new_tokens=32)
+FAM_LOGIT_TOL = 1e-4   # float32 smoke logits, card vs CPU: the orders of
+                       # the sums differ over 2-3 layers (magnitude ~4)
+# prefill-then-decode_step vs a prefill of the longer prompt, max |diff|
+# of the bf16 model's logits; a step from a zeroed cache and a step one
+# position late or early must read above it (checked on every run).
+# whisper-base: 0.0156 against 0.315-1.79 planted (|logits| up to 2.11).
+# deepseek-v2-lite at moe_capacity 100 (no slot dropped on either path,
+# as tests/test_archs_smoke.py runs it), on an H100: the sound path reads
+# 0.5625 (|logits| up to 5.09), one position late 1.42, early 1.80,
+# zeroed latents 7.09; over four more token draws 0.23-0.90 against
+# 1.26-1.86 planted.  The limit sits between them (it was 0.5 until the
+# first full-width reading of 0.5625).  The gap is the routing's: bf16
+# rounds other products on the two paths (the absorbed decode q W_uk^T,
+# the prefill c_kv W_uk), and a row's top-6 set flips where two gates are
+# 4e-6 to 2e-3 apart, after which the rows part (router input max |diff|
+# 0.078-0.094 up to each row's first flip, up to 0.74 after);
+# tests/test_torch_moe.py shows the JAX package's own bf16 gap as large.
+FAM_STEP_TOL = {"moe": 1.0, "whisper": 0.1}
+# MoE: up to each row's first top-k flip, the step's router input against
+# the prefill's (max |diff|).  Sound 0.078-0.094 over five token draws;
+# planted faults 0.63-1.02 (one position late or early) and 5.3-6.1
+# (zeroed latents): the limit sits between them
+FAM_ROUTE_TOL = 0.25
+
+
+def counted(fn):
+    """``fn()`` and the launches it made, by counter (nonzero only)."""
+    before = all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = all_launches()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def hold_counts(what, got: dict, want: dict) -> None:
+    """Every counter ``want`` names at its value, and no other counter
+    moved."""
+    for k in set(got) | set(want):
+        if got.get(k, 0) != want.get(k, 0):
+            fail(f"{what}: kernel {k} launched {got.get(k, 0)} times, the "
+                 f"path implies {want.get(k, 0)}")
+
+
+def mla_bound(q, k, v):
+    """The least time of a causal K4 at q/k head dim D, v head dim Dv:
+    q, k, v read and out written once (bf16) against 2 (D + Dv) flops a
+    (row, key) pair at the bf16 tensor-core peak."""
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
+    return bound_ms(2 * (q.numel() + k.numel() + v.numel() + b * s * h * dv),
+                    2 * b * h * s * (s + 1) / 2 * (d + dv), BF16_FLOPS)
+
+
+def phase_attn_mla(dev):
+    """K4 at deepseek-v2-lite's MLA prefill shape (q/k head dim 192, v
+    128, 16 heads, causal, bf16) at S 65 / 130 / 384, each held to
+    ``rounded_p_limit`` with a planted fault above it, and at the smoke
+    shape in float32 ([2, 15, 4, 24 / 16]) against the plain version;
+    timed at S 384 beside the plain version and SDPA (which takes the
+    separate value head dim)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    cfg, sm = get_config(MOE_ARCH), get_smoke_config(MOE_ARCH)
+    h, d, dv = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    gen = torch.Generator(dev).manual_seed(17)
+    rnd = lambda *shape, dt: torch.randn(*shape, generator=gen, device=dev,
+                                         dtype=torch.float32).to(dt)
+    bf, f32 = torch.bfloat16, torch.float32
+    checks, err = {}, 0.0
+    for s in (65, 130, 384):
+        q, k, v = rnd(1, s, h, d, dt=bf), rnd(1, s, h, d, dt=bf), \
+            rnd(1, s, h, dv, dt=bf)
+        got = FA.flash_attention(q, k, v)
+        checks[s] = rounded_check(
+            f"flash_attention_bf16_mla S={s}", got, q, k, v,
+            planted=FA.flash_attention(q, k, v, q_offset=1))
+        err = max(err, max_diff(got, FA.flash_attention(q, k, v,
+                                                        impl="ref")))
+    hs, ds, dvs = sm.n_heads, sm.qk_nope_dim + sm.qk_rope_dim, sm.v_head_dim
+    qf, kf, vf = rnd(2, 15, hs, ds, dt=f32), rnd(2, 15, hs, ds, dt=f32), \
+        rnd(2, 15, hs, dvs, dt=f32)
+    f32e = max_diff(FA.flash_attention(qf, kf, vf),
+                    FA.flash_attention(qf, kf, vf, impl="ref"))
+    if f32e > F32_TOL:
+        fail(f"flash_attention at ({ds}, {dvs}) differs from its plain "
+             f"version in float32 by {f32e} (> {F32_TOL})")
+    res = dict(time_turns(fa_cases(q, k, v, before=False)),
+               max_abs_err=err, f32_err=f32e, bound=mla_bound(q, k, v),
+               shape=[1, 384, h, d, dv], checks=checks)
+    HOST["flash_attention_bf16_mla"] = host_us(
+        lambda _: FA.flash_attention(q, k, v))
+    say("attn-mla flash_attention_bf16_mla [1, S, 16, 192 / 128] causal: "
+        + ", ".join(f"S={s} {100 * c['limit_share']:.1f}% of its limit "
+                    f"(planted {c['planted_share']:.1f}x)"
+                    for s, c in checks.items())
+        + f"; at S=384 ms={res['ms']:.5f},plain_ms={res['plain_ms']:.5f},"
+        f"bound_ms={res['bound'][0]:.5f} ({res['bound'][1]}),"
+        f"sdpa_ms={res['sdpa_ms']:.5f},host_us="
+        f"{HOST['flash_attention_bf16_mla']:.1f}; float32 [2, 15, {hs}, "
+        f"{ds} / {dvs}] err={f32e}")
+    return res
+
+
+def fam_logits_check(what, got, want):
+    """Card logits against the CPU's (float32 smoke models): within
+    FAM_LOGIT_TOL and the same argmax."""
+    d = max_diff(got, want)
+    if d > FAM_LOGIT_TOL * max(1.0, float(want.abs().max())):
+        fail(f"{what}: card logits differ from the CPU's by {d}")
+    if not torch.equal(got.cpu().argmax(-1), want.cpu().argmax(-1)):
+        fail(f"{what}: card argmax differs from the CPU's")
+    return d
+
+
+def phase_families_small(dev):
+    """The MoE (deepseek-v2-lite, grok-1), VLM (internvl2) and Whisper
+    smoke configs in float32, card == CPU: MoE ``prefill`` + 3
+    ``decode_step``s and ``logits_fn``, the greedy engine and
+    ``mcts_decode_batch`` (the generic fallback); internvl2's
+    ``multimodal_logits`` and greedy engine; Whisper's ``prefill`` with
+    frames + 3 ``decode_step``s.  Each card call's K4 / K3 launches held to
+    the count its path implies.  Returns the details and the launches of
+    the whole phase (counts set to 0 just before, read just after)."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.base import get_family, tree_to
+    from repro_torch.serving import MCTSDecodeConfig, mcts_decode_batch
+    out = {}
+    reset_launches()
+    gen = torch.Generator().manual_seed(FAM_SEED + 5)
+    for arch in FAM_SMALL_ARCHS:
+        cfg = get_smoke_config(arch)
+        fam = get_family(cfg)
+        cpu = fam.init(cfg, seed=FAM_SEED, device="cpu")
+        card = tree_to(cpu, dev)
+        nl, r = cfg.n_layers, {}
+        what = f"families-small {cfg.name}"
+        toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen,
+                             dtype=torch.int32)
+        if cfg.family == "whisper":
+            frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen)
+            runs = {}
+            for d, p in (("cpu", cpu), (dev, card)):
+                cache = fam.init_cache(cfg, 2, 16, device=d)
+                batch = {"frames": frames.to(d), "tokens": toks.to(d)}
+                (lg, cache), n = counted(
+                    lambda: fam.prefill(cfg, p, batch, cache))
+                seq, ns = [lg], [n]
+                for i in range(3):
+                    nxt = torch.full((2, 1), 3 + i, dtype=torch.int32,
+                                     device=d)
+                    (lg, cache), n = counted(
+                        lambda: fam.decode_step(cfg, p, cache, nxt))
+                    seq.append(lg)
+                    ns.append(n)
+                runs[str(d)] = (seq, ns)
+            hold_counts(what + " prefill", runs[str(dev)][1][0],
+                        {"flash_attention": cfg.n_enc_layers + 2 * nl})
+            for n in runs[str(dev)][1][1:]:
+                hold_counts(what + " decode_step", n,
+                            {"decode_attention": nl})
+            r["logits_max_diff"] = max(
+                fam_logits_check(what, a, b)
+                for a, b in zip(runs[str(dev)][0], runs["cpu"][0]))
+            out[arch] = r
+            continue
+        if cfg.family == "moe":
+            runs = {}
+            for d, p in (("cpu", cpu), (dev, card)):
+                cache = fam.init_cache(cfg, 2, 16, device=d)
+                (lg, cache), n = counted(
+                    lambda: fam.prefill(cfg, p, toks.to(d), cache))
+                seq, ns = [lg], [n]
+                for i in range(3):
+                    nxt = torch.full((2, 1), 5 + i, dtype=torch.int32,
+                                     device=d)
+                    (lg, cache), n = counted(
+                        lambda: fam.decode_step(cfg, p, cache, nxt))
+                    seq.append(lg)
+                    ns.append(n)
+                lg, n = counted(lambda: fam.logits_fn(cfg, p, toks.to(d)))
+                runs[str(d)] = (seq + [lg], ns + [n])
+            got, ns = runs[str(dev)]
+            # prefill and logits_fn: one K4 a layer; the MLA decode is
+            # einsums, grok's soft-capped one goes to sdpa
+            for n, want in zip(ns, [nl, 0, 0, 0, nl]):
+                hold_counts(what, n, {"flash_attention": want} if want
+                            else {})
+            r["logits_max_diff"] = max(
+                fam_logits_check(what, a, b)
+                for a, b in zip(got, runs["cpu"][0]))
+            dc = MCTSDecodeConfig(num_actions=3, budget=8, lanes=2,
+                                  search_depth=2, rollout_len=2)
+            prompts = ([1, 2, 3, 4, 5], [7, 8])
+            tc, n = counted(lambda: mcts_decode_batch(cfg, card, prompts, 2,
+                                                      dc, device=dev))
+            if tc != mcts_decode_batch(cfg, cpu, prompts, 2, dc,
+                                       device="cpu"):
+                fail(f"{what}: mcts_decode_batch card tokens differ from "
+                     f"the CPU's")
+            fwd = n.get("flash_attention", 0)
+            if fwd == 0 or fwd % nl or n.get("decode_attention", 0):
+                fail(f"{what}: mcts_decode_batch launched {n}: every "
+                     f"generic step is a forward of {nl} K4 launches")
+            r["mcts_tokens"], r["mcts_launches"] = tc, n
+        else:                                  # vlm
+            patches = torch.randn(2, cfg.n_patches, cfg.frontend_dim,
+                                  generator=gen)
+            lg, n = counted(lambda: fam.multimodal_logits(
+                cfg, card, patches.to(dev), toks.to(dev)))
+            hold_counts(what + " multimodal_logits", n,
+                        {"flash_attention": nl})
+            r["logits_max_diff"] = fam_logits_check(
+                what, lg, fam.multimodal_logits(cfg, cpu, patches, toks))
+        streams = []
+        for d, p in (("cpu", cpu), (dev, card)):
+            eng, reqs = rec_engine(cfg, p, REC_SMALL, "greedy", d)
+            _, n = counted(eng.run_until_drained)
+            streams.append({q.uid: q.out_tokens for q in reqs})
+        want = {"flash_attention": nl * eng.stats.admissions}
+        if cfg.family == "vlm":
+            want["decode_attention"] = nl * eng.stats.steps
+        hold_counts(what + " engine", n, want)
+        if streams[0] != streams[1]:
+            fail(f"{what}: engine card tokens {streams[1]} != CPU "
+                 f"{streams[0]}")
+        r["engine_tokens"] = streams[1]
+        out[arch] = r
+    counts = all_launches()                # read just after the phase
+    say("families-small card == CPU (float32): " + "; ".join(
+        f"{a} logits {v['logits_max_diff']:.2e}"
+        + (" engine tokens" if "engine_tokens" in v else "")
+        + (" mcts tokens" if "mcts_tokens" in v else "")
+        for a, v in out.items())
+        + "; launches " + ",".join(f"{k}={v}" for k, v in counts.items()
+                                   if v))
+    return out, counts
+
+
+def k4_shapes(calls) -> dict:
+    """K4 launches by q shape and v head dim."""
+    out = {}
+    for q, (k, v), kw, _ in calls:
+        key = f"{list(q.shape)}/{v.shape[-1]}" + ("" if kw.get(
+            "causal", True) else " non-causal") + (
+            f" Sk {k.shape[1]}" if k.shape[1] != q.shape[1] else "")
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def engine_run(cfg, params, spec, dev, what, want_fn, calls=None,
+               keep=None):
+    """The greedy engine of ``spec`` driven to the end as one main path
+    (counts set to 0 just before, read just after, held to ``want_fn(eng)``),
+    the first step's attention calls kept in ``calls`` (``keep``).  Every
+    request must emit its budget of tokens in the vocabulary."""
+    eng, reqs = rec_engine(cfg, params, spec, "greedy", dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    if calls is not None:
+        with attn_capture(calls, keep):
+            eng.step()                     # the admissions and one step
+    out = eng.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_launches()                # read just after it
+    hold_counts(what, {k: v for k, v in counts.items() if v},
+                want_fn(eng))
+    for q in reqs:
+        if len(q.out_tokens) != spec["new_tokens"] or not all(
+                0 <= t < cfg.vocab_size for t in q.out_tokens):
+            fail(f"{what}: request {q.uid} emitted {q.out_tokens}")
+    n_tok = sum(len(q.out_tokens) for q in reqs)
+    return {"seconds": secs, "tokens": n_tok, "tokens_per_s": n_tok / secs,
+            "steps": eng.stats.steps, "admissions": eng.stats.admissions,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "ttft_p50_s": out["stats"].get("serving/ttft_p50"),
+            "latency_p50_s": out["latency_p50"], "launches": {
+                k: v for k, v in counts.items() if v}}, counts
+
+
+@contextlib.contextmanager
+def route_capture(calls: list):
+    """Keeps the router's input and result ``(x2d, gates, topi)`` of every
+    ``moe.top_experts`` call inside the span (wrapped for the span, calls
+    through)."""
+    from repro_torch.models import moe as M
+    fn = M.top_experts
+
+    def call(cfg, p, x2d):
+        out = fn(cfg, p, x2d)
+        calls.append((x2d, out[0], out[1]))
+        return out
+    M.top_experts = call
+    try:
+        yield
+    finally:
+        M.top_experts = fn
+
+
+def route_flips(pre, stp, b: int) -> dict:
+    """The step's routing (``stp``, one token a row) against the longer
+    prefill's at its last position (``pre``), MoE layer by layer: the
+    (layer, row) pairs whose top-k expert sets differ; for each row its
+    first such layer, the prefill's gap there between its k-th and
+    (k+1)-th gate (a near tie when small), and the max |diff| of the
+    router's input up to that layer (inclusive) and after it."""
+    n = len(stp)
+    first, flips, gaps, dx = [n] * b, 0, [], []
+    for li, ((xp, gp, tp), (xs, _, ts)) in enumerate(zip(pre, stp)):
+        xp, gp, tp = (t.view(b, -1, t.shape[-1])[:, -1] for t in (xp, gp, tp))
+        differ = (ts.sort(-1).values != tp.sort(-1).values).any(-1).tolist()
+        dx.append((xs.float() - xp.float()).abs().amax(-1).tolist())
+        k = tp.shape[-1]
+        top = gp.float().topk(k + 1, -1).values
+        for r in range(b):
+            flips += differ[r]
+            if differ[r] and first[r] == n:
+                first[r] = li
+                gaps.append(float(top[r, k - 1] - top[r, k]))
+    upto = max(dx[li][r] for r in range(b) for li in range(n)
+               if li <= first[r])
+    after = max((dx[li][r] for r in range(b) for li in range(n)
+                 if li > first[r]), default=0.0)
+    return {"layers": n, "flips": flips, "first_flip_layer": first,
+            "first_flip_gate_gap": gaps, "router_in_upto_first_flip": upto,
+            "router_in_after_first_flip": after}
+
+
+def step_check(what, fam, cfg, params, toks, tol, zero, extra=None):
+    """``prefill(prompt)`` then ``decode_step(token)`` against a prefill of
+    the prompt one token longer (max |diff| of the logits within ``tol``);
+    planted faults must read above it: the same step from a cache whose
+    ``zero`` entries are zeroed, and the step one position late or early
+    (the new token's cache row and angle).  ``extra`` adds the family's
+    other prefill inputs.  For the MoE, the routing of each step is set
+    beside the prefill's layer by layer (``route_flips``): up to each
+    row's first top-k flip the router's input must agree within
+    FAM_ROUTE_TOL, and each planted fault's must not."""
+    b, s = toks.shape[0], toks.shape[1] - 1
+    dev = toks.device
+    moe = hasattr(fam, "top_experts")
+
+    def batch(t):
+        return t if extra is None else dict(extra, tokens=t)
+
+    def routed(calls):
+        return route_capture(calls) if moe else contextlib.nullcontext()
+    _, cache = fam.prefill(cfg, params, batch(toks[:, :s]),
+                           fam.init_cache(cfg, b, s + 8, device=dev))
+    pre = []
+    with routed(pre):
+        full, _ = fam.prefill(cfg, params, batch(toks),
+                              fam.init_cache(cfg, b, s + 8, device=dev))
+    full = full.float()
+    planted, planted_routes = {}, {}
+    for name, off in (("zeroed " + "/".join(zero), 0), ("late", 1),
+                      ("early", -1)):
+        bad = {k: v.clone() for k, v in cache.items()}
+        if off:
+            bad["pos"] += off
+        else:
+            for k in zero:
+                bad[k].zero_()
+        stp = []
+        with routed(stp):
+            lg = fam.decode_step(cfg, params, bad, toks[:, s:])[0]
+        planted[name] = max_diff(lg.float(), full)
+        if moe:
+            planted_routes[name] = route_flips(pre, stp, b)
+    stp = []
+    with routed(stp):
+        got = fam.decode_step(cfg, params, cache, toks[:, s:])[0].float()
+    rows = (got - full).abs().flatten(1).amax(1).tolist()
+    err = max(rows)
+    out = {"step_vs_prefill_max_abs": err, "rows": rows,
+           "planted": planted, "tol": tol,
+           "logit_abs_max": float(full.abs().max())}
+    if err > tol:
+        fail(f"{what}: prefill-then-decode_step differs from the longer "
+             f"prefill by {err} (> {tol}; planted faults read {planted})")
+    if min(planted.values()) <= tol:
+        fail(f"{what}: planted faults read {planted}, one within {tol}: "
+             f"the check cannot see it")
+    if moe:
+        out["routing"] = r = route_flips(pre, stp, b)
+        out["planted_routing"] = {
+            k: v["router_in_upto_first_flip"]
+            for k, v in planted_routes.items()}
+        if r["router_in_upto_first_flip"] > FAM_ROUTE_TOL:
+            fail(f"{what}: up to each row's first routing flip the step's "
+                 f"router input differs from the prefill's by "
+                 f"{r['router_in_upto_first_flip']} (> {FAM_ROUTE_TOL}; "
+                 f"{r})")
+        if min(out["planted_routing"].values()) <= FAM_ROUTE_TOL:
+            fail(f"{what}: planted faults' router inputs read "
+                 f"{out['planted_routing']}, one within {FAM_ROUTE_TOL}: "
+                 f"the check cannot see it")
+    return out
+
+
+def steps_summary(checks) -> str:
+    """The MoE step checks of several token draws, in one phrase."""
+    sound = max(r["step_vs_prefill_max_abs"] for r in checks)
+    planted = min(min(r["planted"].values()) for r in checks)
+    route = max(r["routing"]["router_in_upto_first_flip"] for r in checks)
+    route_planted = min(min(r["planted_routing"].values()) for r in checks)
+    gaps = [g for r in checks for g in r["routing"]["first_flip_gate_gap"]]
+    return (f"sound max {sound} against planted min {planted} (limit "
+            f"{FAM_STEP_TOL['moe']}); router input up to the first flip max "
+            f"{route} against planted min {route_planted} (limit "
+            f"{FAM_ROUTE_TOL}); gate gaps at first flips <= "
+            f"{max(gaps, default=None)}")
+
+
+def step_line(r: dict) -> str:
+    """``step_check``'s result for a summary line."""
+    out = (f"step vs prefill {r['step_vs_prefill_max_abs']} (limit "
+           f"{r['tol']}; rows {r['rows']}; planted " + ", ".join(
+               f"{k} {v}" for k, v in r["planted"].items()) + ")")
+    if "routing" in r:
+        x = r["routing"]
+        out += (f"; routing vs prefill: {x['flips']} of {x['layers']} x "
+                f"{len(r['rows'])} (layer, row) top-k sets differ, first at "
+                f"layers {x['first_flip_layer']} (gate gaps there "
+                f"{x['first_flip_gate_gap']}); router input max |diff| "
+                f"{x['router_in_upto_first_flip']} up to each row's first "
+                f"flip (limit {FAM_ROUTE_TOL}; planted " + ", ".join(
+                    f"{k} {v}" for k, v in r["planted_routing"].items())
+                + f"), {x['router_in_after_first_flip']} after")
+    return out
+
+
+def phase_moe_full(dev):
+    """deepseek-v2-lite-16b at its published width (27 layers, 64 routed
+    experts top-6 + 2 shared, MLA rank 512), bf16, random weights drawn
+    on the card (seed 0): the greedy engine (MOE_GREEDY) and
+    ``mcts_decode_batch`` (MOE_MCTS), each one main path with its launches
+    held to what it implies (27 MLA K4 launches a prefill; the generic
+    search's every step a forward of 27); the engine's K4 launches of its
+    first step (the admissions) held to ``rounded_p_limit`` on their own
+    operands; prefill-then-step against the longer prefill at
+    moe_capacity 100.  Returns the run and the two paths' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.base import count_params
+    from repro_torch.serving import MCTSDecodeConfig, mcts_decode_batch
+    cfg = get_config(MOE_ARCH)
+    nl, what = cfg.n_layers, f"moe-full {cfg.name}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=FAM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    weight_bytes = torch.cuda.memory_allocated()
+    # warm: the kernels' and GEMMs' first calls outside the timed run
+    M.prefill(cfg, params, torch.zeros((1, 64), dtype=torch.int32,
+                                       device=dev),
+              M.init_cache(cfg, 1, 72, device=dev))
+    calls: list = []
+    run, counts = engine_run(
+        cfg, params, MOE_GREEDY, dev, what + " engine",
+        lambda e: {"flash_attention_bf16_mla": nl * e.stats.admissions},
+        calls, lambda name, q, args: name == "flash_attention")
+    run["k4_shapes"] = k4_shapes(calls)
+    run["k4_check"] = carry_k4_check(what + " engine K4", calls)
+    del calls
+    # mcts_decode_batch through the generic fallback
+    prompts = rec_prompts(cfg.vocab_size, MOE_MCTS, FAM_SEED + 9)
+    dc = MCTSDecodeConfig(**{k: MOE_MCTS[k] for k in (
+        "num_actions", "budget", "lanes", "search_depth", "rollout_len")})
+    seen: dict = {}
+
+    def first_forwards(name, q, args):
+        # the first forward (nl launches) at each [rows, S] of the search's
+        # batched forwards over several rows
+        if name != "flash_attention" or q.shape[0] < 2:
+            return False
+        seen[q.shape] = seen.get(q.shape, 0) + 1
+        return seen[q.shape] <= nl
+    calls = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with attn_capture(calls, first_forwards):
+        toks = mcts_decode_batch(cfg, params, prompts,
+                                 MOE_MCTS["new_tokens"], dc, device=dev)
+    torch.cuda.synchronize()
+    msecs = time.perf_counter() - t0
+    mcounts = all_launches()               # read just after it
+    m = {k: v for k, v in mcounts.items() if v}
+    fwd = m.get("flash_attention_bf16_mla", 0)
+    if fwd == 0 or fwd % nl or any(m.get(k, 0) for k in (
+            "flash_attention", "flash_attention_bf16", "decode_attention")):
+        fail(f"{what} mcts: launched {m}: every generic step is a forward "
+             f"of {nl} MLA K4 launches")
+    if any(len(t) != MOE_MCTS["new_tokens"] or not all(
+            0 <= x < cfg.vocab_size for x in t) for t in toks):
+        fail(f"{what} mcts: tokens missing or outside the vocabulary")
+    if not calls:
+        fail(f"{what} mcts: no forward over several rows was launched")
+    run["mcts"] = {"seconds": msecs, "tokens": toks, "launches": m,
+                   "forwards": m["flash_attention_bf16_mla"] // nl,
+                   "tokens_per_s": len(prompts) * MOE_MCTS["new_tokens"]
+                   / msecs, "k4_shapes": k4_shapes(calls),
+                   "k4_check": carry_k4_check(what + " mcts K4", calls)}
+    del calls
+    gens = [torch.Generator().manual_seed(FAM_SEED + 3 + i)
+            for i in range(MOE_STEP_DRAWS)]
+    run["step_checks"] = [step_check(
+        f"{what} (draw {i})", M, cfg.replace(moe_capacity=100.0), params,
+        torch.randint(0, cfg.vocab_size, (4, 129), generator=g,
+                      dtype=torch.int32).to(dev),
+        FAM_STEP_TOL["moe"], ("ckv", "krope")) for i, g in enumerate(gens)]
+    gen = gens[0]
+    run.update(init_s=init_s, n_params=n_params, weight_bytes=weight_bytes)
+    # where the time goes: one engine step over 8 live slots, one prefill
+    # of 384 tokens (chiprun_out/profile_fam.txt)
+    lines, run["profile"] = [], {}
+    eng, _ = rec_engine(cfg, params, MOE_GREEDY, "greedy", dev)
+    eng.step()                             # admits and prefills all slots
+    pt = torch.randint(0, cfg.vocab_size, (1, MOE_GREEDY["prompt_max"]),
+                       generator=gen, dtype=torch.int32).to(dev)
+    for key, label, fn in (
+            ("step", f"one engine step over {MOE_GREEDY['max_batch']} live "
+             f"slots", eng.step),
+            ("prefill", f"one prefill of {pt.shape[1]} tokens",
+             lambda: M.prefill(cfg, params, pt, M.init_cache(
+                 cfg, 1, pt.shape[1], device=dev)))):
+        summary, table = profile_one(f"{cfg.name} greedy: {label}", fn)
+        if summary:
+            run["profile"][key] = summary
+            lines += table
+    write_out("profile_fam.txt", lines)
+    del eng
+    say(f"moe-full {cfg.name} ({n_params / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 2**30:.2f} GiB, drawn on the card in {init_s:.2f} "
+        f"s): engine {run['tokens']} tokens in {run['seconds']:.3f} s = "
+        f"{run['tokens_per_s']:.2f} tokens/s, TTFT p50 "
+        f"{run['ttft_p50_s']}, peak {run['peak_mem_bytes'] / 2**30:.2f} "
+        f"GiB, launches {run['launches']} ({run['admissions']} prefills x "
+        f"{nl}); K4 {run['k4_check']['calls']} launches of the admissions "
+        f"{100 * run['k4_check']['limit_share']:.1f}% of their limit "
+        f"(planted {run['k4_check']['planted_share']:.1f}x), shapes "
+        f"{run['k4_shapes']}; mcts {run['mcts']['tokens']} in {msecs:.3f} "
+        f"s, launches {m} ({run['mcts']['forwards']} forwards), K4 "
+        f"{run['mcts']['k4_check']['calls']} launches of its first forwards "
+        f"{100 * run['mcts']['k4_check']['limit_share']:.1f}% of their "
+        f"limit (planted {run['mcts']['k4_check']['planted_share']:.1f}x), "
+        f"shapes {run['mcts']['k4_shapes']}; draw 0 "
+        f"{step_line(run['step_checks'][0])}; over {MOE_STEP_DRAWS} draws "
+        f"{steps_summary(run['step_checks'])}")
+    del params
+    torch.cuda.empty_cache()
+    return run, (counts, mcounts)
+
+
+def phase_vlm_full(dev):
+    """internvl2-2b at its published width (random bf16 weights, seed 0):
+    ``multimodal_logits`` on 4 x (256 patches + 128 tokens) (24 K4 launches
+    [4, 384, 16, 128], GQA 16 / 8) and the greedy engine (VLM_GREEDY: 24
+    K4 a prefill, 24 K3 a step), each one main path; the K4 launches of
+    ``multimodal_logits`` held to ``rounded_p_limit`` and the K3 launches
+    of the engine's first step to the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import vlm as V
+    from repro_torch.models.base import count_params
+    cfg = get_config(VLM_ARCH)
+    nl, what = cfg.n_layers, f"vlm-full {cfg.name}"
+    params = V.init(cfg, seed=FAM_SEED, device=dev)
+    n_params = count_params(params)
+    gen = torch.Generator(dev).manual_seed(FAM_SEED + 11)
+    b, st = VLM_MM["batch"], VLM_MM["text"]
+    patches = torch.randn(b, cfg.n_patches, cfg.frontend_dim, generator=gen,
+                          device=dev).to(cfg.jdtype)
+    text = torch.randint(0, cfg.vocab_size, (b, st), generator=gen,
+                         device=dev)
+    V.multimodal_logits(cfg, params, patches, text)            # warm
+    calls: list = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with attn_capture(calls, lambda name, q, args: True):
+        lg = V.multimodal_logits(cfg, params, patches, text)
+    torch.cuda.synchronize()
+    mm_s = time.perf_counter() - t0
+    mm_counts = all_launches()             # read just after it
+    hold_counts(what + " multimodal_logits",
+                {k: v for k, v in mm_counts.items() if v},
+                {"flash_attention_bf16": nl})
+    if tuple(lg.shape) != (b, cfg.n_patches + st, cfg.vocab_size) \
+            or not bool(torch.isfinite(lg).all()):
+        fail(f"{what}: multimodal_logits gave {tuple(lg.shape)} or "
+             f"non-finite values")
+    run = {"multimodal": {"seconds": mm_s, "k4_shapes": k4_shapes(calls),
+                          "k4_check": carry_k4_check(what + " K4", calls)}}
+    del calls, lg
+    calls = []
+    er, counts = engine_run(
+        cfg, params, VLM_GREEDY, dev, what + " engine",
+        lambda e: {"flash_attention_bf16": nl * e.stats.admissions,
+                   "decode_attention": nl * e.stats.steps}, calls,
+        lambda name, q, args: name == "decode_attention")
+    run.update(er)
+    run["k3_check"] = carry_k3_check(what + " engine K3", calls[:nl])
+    run["n_params"] = n_params
+    say(f"vlm-full {cfg.name} ({n_params / 1e9:.3f} B parameters): "
+        f"multimodal_logits [{b}, {cfg.n_patches} + {st}] in {mm_s:.4f} s, "
+        f"K4 {run['multimodal']['k4_shapes']} "
+        f"{100 * run['multimodal']['k4_check']['limit_share']:.1f}% of its "
+        f"limit; engine {run['tokens']} tokens in {run['seconds']:.3f} s = "
+        f"{run['tokens_per_s']:.2f} tokens/s, TTFT p50 {run['ttft_p50_s']}, "
+        f"peak {run['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+        f"{run['launches']}; K3 first step bf16 {run['k3_check']['bf16']} "
+        f"({100 * run['k3_check']['f32_limit_share']:.1f}% of its limit)")
+    del params, calls
+    torch.cuda.empty_cache()
+    return run, (mm_counts, counts)
+
+
+def phase_whisper_full(dev):
+    """whisper-base at its published width (random bf16 weights, seed 0):
+    ``prefill`` on 4 x 1500 frames and 32-token prompts (K4: 6 encoder
+    launches [4, 1500, 8, 64] non-causal, 6 decoder causal, 6 cross with
+    Sk 1500), then 32 greedy ``decode_step``s, 33 tokens a row with the
+    prefill's (K3: 6 a step; the one-query
+    cross attention goes to sdpa), one main path; its K4 launches held to
+    ``rounded_p_limit`` and the first step's K3 to the plain version;
+    prefill-then-step against the longer prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.models.base import count_params
+    cfg = get_config(WHISPER_ARCH)
+    nl, what = cfg.n_layers, f"whisper-full {cfg.name}"
+    params = W.init(cfg, seed=FAM_SEED, device=dev)
+    gen = torch.Generator(dev).manual_seed(FAM_SEED + 13)
+    b, s, n_new = WHISPER_RUN["batch"], WHISPER_RUN["prompt"], \
+        WHISPER_RUN["new_tokens"]
+    frames = torch.randn(b, cfg.enc_seq, cfg.d_model, generator=gen,
+                         device=dev).to(cfg.jdtype)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    W.prefill(cfg, params, {"frames": frames, "tokens": toks[:, :s]},
+              W.init_cache(cfg, b, s + n_new, device=dev))       # warm
+    calls: list = []
+    cache = W.init_cache(cfg, b, s + n_new, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with attn_capture(calls, lambda name, q, args: True):
+        lg, cache = W.prefill(cfg, params, {"frames": frames,
+                                            "tokens": toks[:, :s]}, cache)
+        nxt = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        out = [nxt]
+        lg, cache = W.decode_step(cfg, params, cache, nxt)
+    for _ in range(n_new - 1):
+        nxt = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        out.append(nxt)
+        lg, cache = W.decode_step(cfg, params, cache, nxt)
+    out.append(lg[:, -1].argmax(-1)[:, None].to(torch.int32))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_launches()                # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    hold_counts(what, {k: v for k, v in counts.items() if v},
+                {"flash_attention_bf16": cfg.n_enc_layers + 2 * nl,
+                 "decode_attention": nl * n_new})
+    gen_toks = torch.cat(out, 1)
+    if tuple(gen_toks.shape) != (b, n_new + 1) or not bool(
+            ((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+        fail(f"{what}: tokens missing or outside the vocabulary")
+    k4 = [c for c in calls if len(c[1]) == 2]
+    k3 = [c for c in calls if len(c[1]) == 3]
+    run = {"seconds": secs, "ttft_s": ttft,
+           "tokens_per_s": b * (n_new + 1) / secs,
+           "peak_mem_bytes": peak, "n_params": count_params(params),
+           "launches": {k: v for k, v in counts.items() if v},
+           "k4_shapes": k4_shapes(k4),
+           "k4_check": carry_k4_check(what + " K4", k4),
+           "k3_check": carry_k3_check(what + " K3", k3)}
+    del calls, k4, k3
+    run["step_check"] = step_check(
+        what, W, cfg, params, toks, FAM_STEP_TOL["whisper"], ("k", "v"),
+        extra={"frames": frames})
+    say(f"whisper-full {cfg.name} ({run['n_params'] / 1e6:.1f} M "
+        f"parameters): prefill [{b} x {cfg.enc_seq} frames, {s} tokens] + "
+        f"{n_new} steps in {secs:.3f} s = {run['tokens_per_s']:.2f} "
+        f"tokens/s, TTFT {ttft:.4f} s, peak {peak / 2**30:.2f} GiB, "
+        f"launches {run['launches']}; K4 {run['k4_shapes']} "
+        f"{100 * run['k4_check']['limit_share']:.1f}% of its limit "
+        f"(planted {run['k4_check']['planted_share']:.1f}x); K3 bf16 "
+        f"{run['k3_check']['bf16']}; {step_line(run['step_check'])}")
+    del params
+    torch.cuda.empty_cache()
+    return run, (counts,)
+
+
 SOURCES = {
     "se": ("src/repro_torch/csrc/search_wave.cu",
            "src/repro/kernels/search_wave/kernel.py:403"),
@@ -3096,6 +3865,9 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:74"),
     "flash_attention_bf16": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention/kernel.py:74"),
+    "flash_attention_bf16_mla": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
     "wkv6_step": ("src/repro_torch/csrc/rwkv6_scan.cu",
@@ -3112,6 +3884,20 @@ SOURCES = {
 # the chunked ones sequences
 REC_TIMED = {"wkv6_step": "decode", "ssd_step": "decode",
              "wkv6_chunked": "prefill", "ssd_chunked": "prefill"}
+
+
+PHASE_S: dict = {}    # phase function -> seconds spent in it (all calls)
+
+
+@contextlib.contextmanager
+def clock(name: str):
+    """Adds the span's seconds to PHASE_S[name] (the ``phase-s`` line:
+    where the script's time limit goes)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
 
 def main() -> int:
@@ -3133,60 +3919,109 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    card, name = phase_env()
-    build_s, ptxas, sass = phase_build(before)
-    kern = phase_kernels(dev)
-    attn, attn_bf16 = phase_attn_kernels(dev)
-    rec_kern, rec_attn, rec_f32, rec_carry_, rec_cross = \
-        phase_rec_kernels(dev)
+    with clock("env"):
+        card, name = phase_env()
+    with clock("build"):
+        build_s, ptxas, sass = phase_build(before)
+    with clock("kernels"):
+        kern = phase_kernels(dev)
+    with clock("attn_kernels"):
+        attn, attn_bf16 = phase_attn_kernels(dev)
+    with clock("attn_mla"):
+        attn["flash_attention_bf16_mla"] = phase_attn_mla(dev)
+    attn["flash_attention"]["max_abs_err"] = max(
+        attn["flash_attention"]["max_abs_err"],
+        attn["flash_attention_bf16_mla"]["f32_err"])
+    with clock("rec_kernels"):
+        rec_kern, rec_attn, rec_f32, rec_carry_, rec_cross = \
+            phase_rec_kernels(dev)
     torch.cuda.synchronize()
     census: dict = {}
     reset_launches()        # the small main paths (float32 smoke models)
-    small = phase_small(dev)
-    with f32_census(census, "smollm-smoke decode"):
+    with clock("small"):
+        small = phase_small(dev)
+    with f32_census(census, "smollm-smoke decode"), clock("lm_small"):
         lm_small = phase_lm_small(dev)
-    with f32_census(census, "smoke engines (zamba2)"):
+    with f32_census(census, "smoke engines (zamba2)"), \
+            clock("rec_small"):
         rec_small = phase_rec_small(dev)
-    with f32_census(census, "smoke carries"):
+    with f32_census(census, "smoke carries"), clock("carry_small"):
         carry_small = phase_carry_small(dev)
     torch.cuda.synchronize()
     small_counts = all_launches()          # read just after them
     if small_counts["flash_attention"] == 0:
         fail("the float32 flash_attention kernel was not launched on the "
              "float32 smoke models' paths")
-    f32_paths = phase_f32_paths(dev, census, small_counts["flash_attention"])
+    with clock("f32_paths"):
+        f32_paths = phase_f32_paths(dev, census,
+                                    small_counts["flash_attention"])
     attn["flash_attention"]["main_path"] = f32_paths
     attn["flash_attention"]["max_abs_err"] = max(
         attn["flash_attention"]["max_abs_err"], f32_paths["max_abs_err"])
-    runs, counts = phase_full(dev)
-    lm_run, lm_params, lm_first = phase_lm_full(dev)
+    # the other families' smoke configs (their own main path, counted
+    # outside the float32 census: its timed shapes are the dense paths')
+    with clock("families_small"):
+        fam_small, fam_small_counts = phase_families_small(dev)
+    with clock("full"):
+        runs, counts = phase_full(dev)
+    with clock("lm_full"):
+        lm_run, lm_params, lm_first = phase_lm_full(dev)
     # the carry runs before any tracing: their steps are timed beside the
     # cold mcts_decode_batch run's
-    lm_carry = phase_lm_carry(dev, lm_params, {
-        "tokens": lm_run["tokens"], "first_planes": lm_first,
-        "tokens_per_s": lm_run["tokens_per_s"]}, card)
+    with clock("lm_carry"):
+        lm_carry = phase_lm_carry(dev, lm_params, {
+            "tokens": lm_run["tokens"], "first_planes": lm_first,
+            "tokens_per_s": lm_run["tokens_per_s"]}, card)
     for k, e in lm_carry["attn_err"].items():
         attn[k]["max_abs_err"] = max(attn[k]["max_abs_err"], e)
     # the sharded paths, before any tracing
     torch.cuda.synchronize()
     reset_launches()
-    shard = {"shard": phase_shard(dev), "shard_mp": phase_shard_mp(dev),
-             "ft": phase_ft(dev), "lm_shard": phase_lm_shard(dev, lm_params)}
+    shard = {}
+    for key, fn, args in (("shard", phase_shard, ()),
+                          ("shard_mp", phase_shard_mp, ()),
+                          ("ft", phase_ft, ()),
+                          ("lm_shard", phase_lm_shard, (lm_params,))):
+        with clock(key):
+            shard[key] = fn(dev, *args)
     torch.cuda.synchronize()
     shard_counts = all_launches()          # read just after them
     for k in ("bes", "se", "se_running", "b", "decode_attention",
               "flash_attention_bf16"):
         if shard_counts[k] == 0:
             fail(f"kernel {k} was not launched on the sharded paths")
-    lm_prof = phase_lm_profile(dev, lm_params)
+    with clock("lm_profile"):
+        lm_prof = phase_lm_profile(dev, lm_params)
     del lm_params, lm_first
     torch.cuda.empty_cache()
-    rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
-    prof = phase_profile(dev)
+    with clock("rec_full"):
+        rec_runs, rec_counts, rec_prof = phase_rec_full(dev)
+    # the other families at their published widths, each path counted
+    fam_full, fam_counts = {}, []
+    for name, fn in (("moe", phase_moe_full), ("vlm", phase_vlm_full),
+                     ("whisper", phase_whisper_full)):
+        with clock(name + "_full"):
+            fam_full[name], c = fn(dev)
+        fam_counts += list(c)
+    for k, e in (("flash_attention_bf16_mla",
+                  fam_full["moe"]["k4_check"]["max_abs_err"]),
+                 ("flash_attention_bf16_mla",
+                  fam_full["moe"]["mcts"]["k4_check"]["max_abs_err"]),
+                 ("flash_attention_bf16",
+                  fam_full["vlm"]["multimodal"]["k4_check"]["max_abs_err"]),
+                 ("flash_attention_bf16",
+                  fam_full["whisper"]["k4_check"]["max_abs_err"]),
+                 ("decode_attention", fam_full["vlm"]["k3_check"]["bf16"]),
+                 ("decode_attention",
+                  fam_full["whisper"]["k3_check"]["bf16"])):
+        attn[k]["max_abs_err"] = max(attn[k]["max_abs_err"], e)
+    with clock("profile"):
+        prof = phase_profile(dev)
     # launches on the main paths: the float32 smoke runs, P-game, LM
-    # decode cold and with the carries, the sharded paths, the engines
+    # decode cold and with the carries, the sharded paths, the engines,
+    # the other families (smoke and full width)
     paths = (small_counts, counts, lm_run["launches"], lm_carry["launches"],
-             shard_counts, rec_counts)
+             shard_counts, rec_counts, fam_small_counts, *fam_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
@@ -3230,6 +4065,9 @@ def main() -> int:
                         "replaces": repl, "launches": total[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lib})
+    say("phase-s " + " ".join(f"{k}={v:.1f}" for k, v in PHASE_S.items())
+        + f" (seconds in each phase; {time.perf_counter() - t_start:.1f} in "
+        f"all)")
     say("host-us " + " ".join(
         f"{k}={v:.1f}" + ("[{:.1f}-{:.1f}]".format(*HOST_SPREAD[k])
                           if k in HOST_SPREAD else "")
@@ -3249,10 +4087,11 @@ def main() -> int:
               "rec_carry": rec_carry_, "rec_crossover": rec_cross,
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,
               "rec_full": rec_runs, "rec_launches": rec_counts,
-              "rec_profile": rec_prof, "launches_total": total,
+              "rec_profile": rec_prof, "families_small": fam_small,
+              "families_full": fam_full, "launches_total": total,
               "launches_small": small_counts, "host_us": HOST,
               "host_us_spread": HOST_SPREAD, "chains": CHAINS,
-              "k2a": K2A,
+              "k2a": K2A, "phase_s": PHASE_S,
               "seconds": time.perf_counter() - t_start,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     write_out("chip_smoke.json", [json.dumps(detail, indent=1)])

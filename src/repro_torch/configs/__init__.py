@@ -2,9 +2,8 @@
 
 ``get_config(arch)`` -> full ModelConfig (the published dims);
 ``get_smoke_config(arch)`` -> reduced same-family config for CPU tests.
-Copies of ``repro.configs`` for the ported families: the four dense
-architectures, rwkv6-1.6b (``rwkv6``) and zamba2-1.2b (``zamba2``); the
-other families come with their models (ROADMAP Queue 1 item 4).
+Copies of ``repro.configs``: the same ten architectures in the same
+order, over the six families (dense, moe, whisper, rwkv6, zamba2, vlm).
 """
 from __future__ import annotations
 
@@ -13,8 +12,18 @@ from typing import Dict, List
 
 from repro_torch.models.base import ModelConfig
 
-ARCHS: List[str] = ["smollm-135m", "qwen2-0.5b", "minicpm-2b",
-                    "stablelm-3b", "rwkv6-1.6b", "zamba2-1.2b"]
+ARCHS: List[str] = [
+    "deepseek-v2-lite-16b",
+    "grok-1-314b",
+    "smollm-135m",
+    "qwen2-0.5b",
+    "minicpm-2b",
+    "stablelm-3b",
+    "whisper-base",
+    "rwkv6-1.6b",
+    "zamba2-1.2b",
+    "internvl2-2b",
+]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_")
                             for a in ARCHS}
@@ -22,7 +31,7 @@ _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_")
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; ported: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

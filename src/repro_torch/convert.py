@@ -87,11 +87,14 @@ def arena_to_numpy(arena: TreeArena, *,
 
 
 def params_from_numpy(tree, device="cpu"):
-    """The port's parameter dict from a JAX parameter pytree whose leaves
-    were taken with ``np.asarray`` (same keys; bfloat16 leaves, which numpy
-    holds as ``ml_dtypes.bfloat16``, become ``torch.bfloat16``)."""
+    """The port's parameter tree from a JAX parameter pytree whose leaves
+    were taken with ``np.asarray`` (same keys, lists stay lists; bfloat16
+    leaves, which numpy holds as ``ml_dtypes.bfloat16``, become
+    ``torch.bfloat16``)."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     x = np.asarray(tree)
     if x.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(x.view(np.uint16)).astype(np.int32))

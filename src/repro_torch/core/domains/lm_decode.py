@@ -43,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.base import (ModelConfig, get_family, seq_prefill,
+from repro_torch.models.base import (ModelConfig, row_logits, seq_prefill,
                                      seq_step)
 
 _META = ("len", "plen", "logits")
@@ -80,9 +80,6 @@ class LMDecodeDomain:
                                       # whole by core.tree.init_tree
     root_arena_alive: Any = None      # bool ([] or [B]) gating root_arena
                                       # per root; None means alive
-
-    def __post_init__(self):
-        object.__setattr__(self, "_fam", get_family(self.cfg))
 
     @property
     def max_len(self) -> int:
@@ -122,8 +119,7 @@ class LMDecodeDomain:
     # -- internals ----------------------------------------------------------
     def _last_logits(self, toks, ln):
         lead, m = toks.shape[:-1], toks.shape[-1]
-        logits = self._fam.logits_fn(self.cfg, self.params,
-                                     toks.reshape(-1, m))
+        logits = row_logits(self.cfg, self.params, toks.reshape(-1, m))
         rows = torch.arange(logits.shape[0], device=toks.device)
         last = logits[rows, ln.reshape(-1).long() - 1].float()
         return last.reshape(lead + last.shape[-1:]) / self.temperature

@@ -5,9 +5,11 @@
 //                                         fa_kernel (float32)
 // and implements what that path drops: q_offset and logits_soft_cap.
 //
-// Layout: q [B, Sq, H, D], k/v [B, Sk, Hkv, D], out [B, Sq, H, D], row-major
-// (the public layout of the port's wrapper, read in place: no transpose or
-// padding copy).  GQA: head h reads kv head h / (H / Hkv).
+// Layout: q [B, Sq, H, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv, Dv], out
+// [B, Sq, H, Dv], row-major (the public layout of the port's wrapper, read
+// in place: no transpose or padding copy).  GQA: head h reads kv head
+// h / (H / Hkv).  Dv is D but for deepseek-v2's MLA prefill, whose q and k
+// carry 192 columns (128 from the latent, 64 rotary) and v 128.
 //
 // What bounds it on an H100.  bfloat16: bytes.  At the main path's
 // prefill shapes (smollm-135m, 16 prompts x 276 positions, 9 heads of 64;
@@ -18,29 +20,32 @@
 // GFLOP of exact causal work over 14 MB, 21 us at the 67 TFLOP/s FFMA
 // peak against 4 us at the memory rate.
 //
-// bfloat16, fa_wgmma_kernel (D in {64, 80, 128}): one CTA of one warpgroup
-// (128 threads) per (64-row query tile, b * H + h).  One thread issues
+// bfloat16, fa_wgmma_kernel<D, DV> ((D, Dv) in {(64, 64), (80, 80),
+// (128, 128), (192, 128)}): one CTA of one warpgroup (128 threads) per
+// (64-row query tile, b * H + h).  One thread issues
 // every copy by TMA (cp.async.bulk.tensor on a 4-D tensor map of the
 // [B, S, H, D] tensor, completing on an mbarrier): the Q tile once, K and
 // V tiles of 64 keys through a ring in shared memory (K of tile t + 1 and V
 // of tile t in flight while tile t's S = Q K^T and softmax run).  Tiles
 // land in the 128-byte swizzle that wgmma reads: 64-column atoms of rows x
 // 128 B, 16-byte chunk c of row r at chunk c ^ (r % 8); D = 80 takes two
-// atoms, the columns past D and the rows past the end arriving as zeros.
-// S = Q K^T is wgmma m64n64k16 with both operands K-major in shared memory,
-// float32 accumulators; the online softmax (scale, soft cap, masks, row max
+// atoms and D = 192 three (Q and K tiles; V's follow Dv), the columns past
+// D and the rows past the end arriving as zeros.  S = Q K^T is wgmma
+// m64n64k16 (D / 16 steps: 12 at D = 192) with both operands K-major in
+// shared memory, float32 accumulators; the online softmax (scale, soft cap, masks, row max
 // and sum over the quad of lanes that holds a row) runs on the accumulator
 // fragments in registers; P is rounded to bf16 in registers, as the Pallas
 // kernel rounds it to V's dtype, and O += P V is wgmma m64nNk16 (N = 64 or
-// 128) with A from registers and V [keys, D] as the MN-major B operand; l is
+// 128, from Dv) with A from registers and V [keys, D] as the MN-major B operand; l is
 // summed from the float32 P.  seq_k_valid and the causal diagonal are masked
 // only in the tiles that straddle them; tiles above the diagonal (shifted
 // by q_offset) are never loaded.  A row with no key writes 0.  The tensor
 // maps are made on the host (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint) and kept for the last few pointers and shapes.
 //
-// float32, fa_kernel<DP> (any D <= 128, padded to DP = 16, 32, 64 or 128;
-// the smoke models, whose card == CPU token streams go through it).  Both
+// float32, fa_kernel<DP> (any Dv <= D <= 128, D padded to DP = 16, 32, 64
+// or 128; the smoke models, whose card == CPU token streams go through
+// it, deepseek-v2's at D 24 / Dv 16).  Both
 // products stay IEEE float32 FFMA on the CUDA cores: wgmma has no float32
 // mode but TF32, which would break those streams.  One block of 8 warps per
 // (b * H + h, 64-row query tile), the tiles with the most keys (the last,
@@ -249,15 +254,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// Columns in shared memory: D and Dv rounded up to whole 64-column atoms.
+// At (192, 128) the Q tile is 24 KB and each K stage 24 KB, with 16 KB of
+// V: 89 KB of the SM's 227 KB.
+template <int D, int DV>
 struct WgmmaShape {
-  static constexpr int DP = D <= 64 ? 64 : 128;   // columns in smem
+  static constexpr int DP = (D + 63) / 64 * 64;   // Q / K columns
+  static constexpr int DVP = (DV + 63) / 64 * 64; // V / O columns
+  static_assert(DVP == 64 || DVP == 128, "O is wgmma N = 64 or 128");
   static constexpr int QTILE = TM * DP * 2;       // bytes of the Q tile
-  static constexpr int KTILE = TN * DP * 2;       // bytes of a K / V tile
-  static constexpr int SMEM = QTILE + (KS + VS) * KTILE + 1024;
+  static constexpr int KTILE = TN * DP * 2;       // bytes of a K tile
+  static constexpr int VTILE = TN * DVP * 2;      // bytes of a V tile
+  static constexpr int SMEM = QTILE + KS * KTILE + VS * VTILE + 1024;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(128)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
@@ -265,9 +276,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 __nv_bfloat16* __restrict__ out, int sq, int sk, int seq_k,
                 int h, int hkv, int causal, int q_offset, float scale,
                 float cap) {
-  using S = WgmmaShape<D>;
-  constexpr int DP = S::DP, QTILE = S::QTILE, KTILE = S::KTILE;
-  constexpr int NO = DP / 2;               // O accumulators per thread
+  using S = WgmmaShape<D, DV>;
+  constexpr int DP = S::DP, DVP = S::DVP, QTILE = S::QTILE;
+  constexpr int KTILE = S::KTILE, VTILE = S::VTILE;
+  constexpr int NO = DVP / 2;              // O accumulators per thread
   constexpr int NSC = TN / 2;              // S accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + KS + VS];   // Q, K, V stages
@@ -300,8 +312,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   };
   auto issue_v = [&](int t) {
     const uint32_t bar = bar_v + (t % VS) * 8;
-    mbar_expect(bar, KTILE);
-    tma_tile<DP, TN>(s_v + (t % VS) * KTILE, &map_v, bar, kvh, t * TN, b);
+    mbar_expect(bar, VTILE);
+    tma_tile<DVP, TN>(s_v + (t % VS) * VTILE, &map_v, bar, kvh, t * TN, b);
   };
   if (tid == 0) {
     for (int i = 0; i < 1 + KS + VS; ++i) mbar_init(bar_q + 8 * i, 1);
@@ -325,7 +337,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * TN;
     const uint32_t sk_t = s_k + (t % KS) * KTILE;
-    const uint32_t sv_t = s_v + (t % VS) * KTILE;
+    const uint32_t sv_t = s_v + (t % VS) * VTILE;
     if (tid == 0) {        // the stages these fill were freed at t - 1
       if (t + KS - 1 < n_tiles) issue_k(t + KS - 1);
       if (t + VS - 1 < n_tiles) issue_v(t + VS - 1);
@@ -412,7 +424,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < TN / 16; ++kk) {
       const uint64_t dv = sw128_desc(sv_t + kk * 16 * 128, TN * 128, 1024);
-      if constexpr (DP == 64) wgmma_rs_n64(o, a[kk], dv);
+      if constexpr (DVP == 64) wgmma_rs_n64(o, a[kk], dv);
       else wgmma_rs_n128(o, a[kk], dv);
     }
     wgmma_commit();
@@ -427,12 +439,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   l_b += __shfl_xor_sync(~0u, l_b, 2);
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
-  const size_t q_ld = (size_t)h * D;
-  __nv_bfloat16* ob = out + (size_t)b * sq * q_ld + (size_t)hh * D;
+  const size_t q_ld = (size_t)h * DV;
+  __nv_bfloat16* ob = out + (size_t)b * sq * q_ld + (size_t)hh * DV;
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
+  for (int j = 0; j < DVP / 8; ++j) {
     const int col = j * 8 + (lane & 3) * 2;
-    if (col < D) {
+    if (col < DV) {
       if (qi_a < sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qi_a * q_ld + col) =
             __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
@@ -506,22 +518,24 @@ bool tensor_map(CUtensorMap* out, const void* base, int b, int s, int h,
   return true;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int b, int sq, int sk, int seq_k, int h, int hkv, int causal,
                  int q_offset, float scale, float cap, cudaStream_t stream) {
-  constexpr int SMEM = WgmmaShape<D>::SMEM;
-  static cudaError_t attr = cudaFuncSetAttribute(   // once per D
-      fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int SMEM = WgmmaShape<D, DV>::SMEM;
+  static cudaError_t attr = cudaFuncSetAttribute(   // once per (D, DV)
+      fa_wgmma_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (attr != cudaSuccess) return (int)attr;
+  // each map keyed by its own tensor's pointer and shape, its last dim
+  // included: q and k at D, v at DV
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, b, sq, h, D, TM)
       || !tensor_map(&mk, k, b, sk, hkv, D, TN)
-      || !tensor_map(&mv, v, b, sk, hkv, D, TN))
+      || !tensor_map(&mv, v, b, sk, hkv, DV, TN))
     return (int)cudaErrorInvalidValue;
   dim3 grid((sq + TM - 1) / TM, b * h);
-  fa_wgmma_kernel<D><<<grid, 128, SMEM, stream>>>(
+  fa_wgmma_kernel<D, DV><<<grid, 128, SMEM, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)out, sq, sk, seq_k, h, hkv, causal,
       q_offset, scale, cap);
   return (int)cudaGetLastError();
@@ -537,7 +551,9 @@ constexpr int PLD = FQ + 16;          // P's row stride in floats
 
 // D padded to DP (16, 32, 64 or 128); rows of DP + 4 floats in shared
 // memory, so that the 16 keys a K load reads lie in distinct bank quads
-// (a row is an odd number of 16-byte chunks).  Q, K x 2, V x 2 and P.
+// (a row is an odd number of 16-byte chunks).  Q, K x 2, V x 2 and P.  V
+// (Dv <= D columns) takes tiles of the same shape, its columns past Dv
+// zero, so O's columns past Dv stay 0 and are not written.
 template <int DP>
 struct F32Shape {
   static constexpr int LD = DP + 4;
@@ -624,8 +640,8 @@ template <int DP>
 __global__ void __launch_bounds__(FTHREADS, F32Shape<DP>::MIN_BLOCKS)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int sq,
-          int sk, int seq_k, int h, int hkv, int d, int causal, int q_offset,
-          float scale, float cap) {
+          int sk, int seq_k, int h, int hkv, int d, int dv, int causal,
+          int q_offset, float scale, float cap) {
   using S = F32Shape<DP>;
   constexpr int LD = S::LD, TILE = S::TILE, CPT = S::CPT, CW = S::CW;
   extern __shared__ __align__(16) float fsm[];
@@ -640,9 +656,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = hh / (h / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FQ;
   const size_t q_row = (size_t)h * d, kv_row = (size_t)hkv * d;
+  const size_t v_row = (size_t)hkv * dv, o_row = (size_t)h * dv;
   const float* qb = q + (size_t)b * sq * q_row + (size_t)hh * d;
   const float* kb = k + (size_t)b * sk * kv_row + (size_t)kvh * d;
-  const float* vb = v + (size_t)b * sk * kv_row + (size_t)kvh * d;
+  const float* vb = v + (size_t)b * sk * v_row + (size_t)kvh * dv;
 
   // keys this tile can see: below seq_k_valid and, causal, at or below
   // the last query row's position
@@ -654,13 +671,17 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int n_tiles = (k_end + FQ - 1) / FQ;
 
-  if (d < DP)                            // columns past D read as zeros
-    for (int e = tid; e < 5 * FQ * (DP - d); e += FTHREADS)
+  // columns past D (Q, K x 2) and past Dv (V x 2) read as zeros
+  if (d < DP)
+    for (int e = tid; e < 3 * FQ * (DP - d); e += FTHREADS)
       fsm[(e / (DP - d)) * LD + d + e % (DP - d)] = 0.0f;
+  if (dv < DP)
+    for (int e = tid; e < 2 * FQ * (DP - dv); e += FTHREADS)
+      vs[(e / (DP - dv)) * LD + dv + e % (DP - dv)] = 0.0f;
   if (n_tiles > 0) {                     // Q with the first K / V tile
     load_tile<DP>(s_q, qb, q_row, q0, sq, d);
     load_tile<DP>(s_k, kb, kv_row, 0, k_end, d);
-    load_tile<DP>(s_v, vb, kv_row, 0, k_end, d);
+    load_tile<DP>(s_v, vb, v_row, 0, k_end, dv);
   }
   cp_async_commit();
 
@@ -683,8 +704,8 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (t + 1 < n_tiles) {               // tile t + 1 in flight meanwhile
       load_tile<DP>(s_k + 4u * ((t + 1) & 1) * TILE, kb, kv_row, k0 + FQ,
                     k_end, d);
-      load_tile<DP>(s_v + 4u * ((t + 1) & 1) * TILE, vb, kv_row, k0 + FQ,
-                    k_end, d);
+      load_tile<DP>(s_v + 4u * ((t + 1) & 1) * TILE, vb, v_row, k0 + FQ,
+                    k_end, dv);
     }
     cp_async_commit();
     cp_async_wait1();                    // tile t (and Q) landed
@@ -802,7 +823,7 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                     // K, V and P free for tile t + 2
   }
 
-  float* ob = out + (size_t)b * sq * q_row + (size_t)hh * d;
+  float* ob = out + (size_t)b * sq * o_row + (size_t)hh * dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float li = l[i];
@@ -817,7 +838,7 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < CW; ++c) {
           const int col = mm * 16 * CW + cg * CW + c;
-          if (col < d) ob[(size_t)qi * q_row + col] = o[i][mm * CW + c] * inv;
+          if (col < dv) ob[(size_t)qi * o_row + col] = o[i][mm * CW + c] * inv;
         }
     }
   }
@@ -825,8 +846,9 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int sk, int seq_k, int h, int hkv, int d, int causal,
-               int q_offset, float scale, float cap, cudaStream_t stream) {
+               int sq, int sk, int seq_k, int h, int hkv, int d, int dv,
+               int causal, int q_offset, float scale, float cap,
+               cudaStream_t stream) {
   constexpr int SMEM = F32Shape<DP>::SMEM;
   static cudaError_t attr = cudaFuncSetAttribute(   // once per DP
       fa_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -837,53 +859,52 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
   dim3 grid((unsigned)(b * h), (unsigned)tiles);
   fa_kernel<DP><<<grid, FTHREADS, SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk,
-      seq_k, h, hkv, d, causal, q_offset, scale, cap);
+      seq_k, h, hkv, d, dv, causal, q_offset, scale, cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Each returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
-// shapes the kernel does not take.  float32: D <= 128.
+// shapes the kernel does not take.  d is q's and k's head dim, dv v's and
+// out's.  float32: dv <= d <= 128.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int sk, int seq_k, int h, int hkv, int d,
-                                   int causal, int q_offset, float scale,
-                                   float cap, void* stream) {
-  if (d < 1 || d > MAX_D || hkv < 1 || h % hkv != 0)
+                                   int dv, int causal, int q_offset,
+                                   float scale, float cap, void* stream) {
+  if (dv < 1 || dv > d || d > MAX_D || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 16)
-    return launch_f32<16>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                          q_offset, scale, cap, s);
+    return launch_f32<16>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
+                          causal, q_offset, scale, cap, s);
   if (d <= 32)
-    return launch_f32<32>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                          q_offset, scale, cap, s);
+    return launch_f32<32>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
+                          causal, q_offset, scale, cap, s);
   if (d <= 64)
-    return launch_f32<64>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                          q_offset, scale, cap, s);
-  return launch_f32<128>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, causal,
-                         q_offset, scale, cap, s);
+    return launch_f32<64>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
+                          causal, q_offset, scale, cap, s);
+  return launch_f32<128>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
+                         causal, q_offset, scale, cap, s);
 }
 
-// bfloat16 on the tensor cores: D in {64, 80, 128}; q, k, v 16-byte
-// aligned.
+// bfloat16 on the tensor cores: (d, dv) in {(64, 64), (80, 80), (128, 128),
+// (192, 128)}; q, k, v 16-byte aligned.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int b, int sq,
                                     int sk, int seq_k, int h, int hkv, int d,
-                                    int causal, int q_offset, float scale,
-                                    float cap, void* stream) {
+                                    int dv, int causal, int q_offset,
+                                    float scale, float cap, void* stream) {
   if (hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-#define FA_CASE(D)                                                          \
-  case D:                                                                   \
-    return launch_wgmma<D>(q, k, v, out, b, sq, sk, seq_k, h, hkv, causal,  \
-                           q_offset, scale, cap, s);
-    FA_CASE(64) FA_CASE(80) FA_CASE(128)
+#define FA_CASE(D, DV)                                                      \
+  if (d == D && dv == DV)                                                   \
+    return launch_wgmma<D, DV>(q, k, v, out, b, sq, sk, seq_k, h, hkv,      \
+                               causal, q_offset, scale, cap, s);
+  FA_CASE(64, 64) FA_CASE(80, 80) FA_CASE(128, 128) FA_CASE(192, 128)
 #undef FA_CASE
-  }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,10 +29,12 @@ def masked_softmax_pv(s, keep, v):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         logits_soft_cap: float = 0.0, seq_k_valid=None):
-    """q ``[B, Sq, H, D]``; k, v ``[B, Sk, Hkv, D]`` (GQA: head h reads kv
-    head ``h // (H // Hkv)``) -> ``[B, Sq, H, D]`` in q's dtype."""
+    """q ``[B, Sq, H, D]``; k ``[B, Sk, Hkv, D]``; v ``[B, Sk, Hkv, Dv]``
+    (GQA: head h reads kv head ``h // (H // Hkv)``; MLA: Dv may differ
+    from D) -> ``[B, Sq, H, Dv]`` in q's dtype, scores scaled by
+    ``1 / sqrt(D)``."""
     b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
     qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # [B, Hkv, 1, Sk, D]
@@ -47,8 +49,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
         keep = keep & (qpos >= kpos[None, :])
     else:
         keep = keep.expand(sq, sk)
-    out = masked_softmax_pv(s, keep, vf)                 # [B, Hkv, G, Sq, D]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    out = masked_softmax_pv(s, keep, vf)                 # [B, Hkv, G, Sq, Dv]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
 BF16_U = 2.0 ** -8   # unit roundoff of bf16 (8 significant bits)

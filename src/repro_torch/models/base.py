@@ -28,7 +28,11 @@ cache, tokens)``, whose cache leaves are ``[L, B, ...]`` (or ``[B]``).
 
 Families without the pair fall back to ``seq_prefill``/``seq_step``'s
 generic path: the "cache" is the token buffer, and each step re-runs the
-full forward — correct for every family, just uncached.
+full forward — correct for every family, just uncached.  The forward is
+the family's ``seq_logits_fn`` when it has one, else ``logits_fn``: the
+JAX package runs the fallback row by row (``vmap``), and a family whose
+batched forward couples its rows (MoE's capacity-limited dispatch) gives
+``seq_logits_fn``, which treats each row as a sequence of its own.
 """
 from __future__ import annotations
 
@@ -146,8 +150,9 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _FAMILIES: Dict[str, Any] = {}
 
-_FAMILY_MODULES = {"dense": "transformer", "rwkv6": "rwkv6",
-                   "zamba2": "zamba2"}
+_FAMILY_MODULES = {"dense": "transformer", "moe": "moe",
+                   "whisper": "whisper", "rwkv6": "rwkv6",
+                   "zamba2": "zamba2", "vlm": "vlm"}
 
 
 def register_family(name: str):
@@ -162,9 +167,8 @@ def get_family(cfg_or_name):
         else cfg_or_name
     if name not in _FAMILIES:
         if name not in _FAMILY_MODULES:
-            raise NotImplementedError(
-                f"model family {name!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 4); ported: {sorted(_FAMILY_MODULES)}")
+            raise KeyError(f"unknown model family {name!r}; known: "
+                           f"{sorted(_FAMILY_MODULES)}")
         importlib.import_module(f"repro_torch.models.{_FAMILY_MODULES[name]}")
     return _FAMILIES[name]
 
@@ -178,11 +182,17 @@ def _at(x, idx):
                     .expand(idx.shape + (1, x.shape[-1])))[..., 0, :]
 
 
+def row_logits(cfg: ModelConfig, params, toks):
+    """The generic path's forward over rows ``toks [N, S]``, each row a
+    sequence of its own (see the module docstring)."""
+    fam = get_family(cfg)
+    return getattr(fam, "seq_logits_fn", fam.logits_fn)(cfg, params, toks)
+
+
 def _generic_prefill(cfg: ModelConfig, params, toks, plen):
     """Fallback prefill: the "cache" is the token buffer itself."""
-    fam = get_family(cfg)
     lead, s = toks.shape[:-1], toks.shape[-1]
-    logits = fam.logits_fn(cfg, params, toks.reshape(-1, s))
+    logits = row_logits(cfg, params, toks.reshape(-1, s))
     last = _at(logits.view(lead + logits.shape[1:]),
                torch.as_tensor(plen, device=toks.device) - 1)
     return last.float(), {"toks": toks.to(torch.int32)}
@@ -191,7 +201,6 @@ def _generic_prefill(cfg: ModelConfig, params, toks, plen):
 def _generic_step(cfg: ModelConfig, params, cache, tok, pos):
     """Fallback step: write ``tok`` at ``pos`` (in place) and re-run the
     full forward — the same logits as the cached path, no amortisation."""
-    fam = get_family(cfg)
     toks = cache["toks"]
     lead, s = toks.shape[:-1], toks.shape[-1]
     pos = torch.as_tensor(pos, device=toks.device).expand(lead)
@@ -199,7 +208,7 @@ def _generic_step(cfg: ModelConfig, params, cache, tok, pos):
     toks.scatter_(-1, pos.long()[..., None],
                   torch.as_tensor(tok, dtype=toks.dtype,
                                   device=toks.device).expand(lead)[..., None])
-    logits = fam.logits_fn(cfg, params, toks.reshape(-1, s))
+    logits = row_logits(cfg, params, toks.reshape(-1, s))
     out = _at(logits.view(lead + logits.shape[1:]), pos)
     return out.float(), cache
 
@@ -225,14 +234,47 @@ def seq_step(cfg: ModelConfig, params, cache, tok, pos):
 
 
 def tree_to(tree, device):
-    """A (nested) parameter dict with every tensor on ``device``."""
+    """A (nested) parameter tree of dicts and lists with every tensor on
+    ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
+def stack_layers(n: int, make, device=None):
+    """``n`` blocks from ``make()`` (a nested dict of tensors each) stacked
+    on a leading ``[n]`` axis, on ``device`` (by default where ``make``
+    puts them): the stack is allocated once and filled block by block, so
+    that no more than one block is held beside it."""
+    def alloc(t):
+        return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.new_empty((n,) + t.shape)
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    def block():
+        return make() if device is None else tree_to(make(), device)
+    first = block()
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, block(), i)
+    return out
+
+
 def count_params(tree) -> int:
-    """Number of scalars in a (nested) parameter dict."""
+    """Number of scalars in a (nested) parameter tree of dicts and
+    lists."""
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(count_params(v) for v in tree)
     return int(tree.numel())

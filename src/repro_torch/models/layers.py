@@ -7,8 +7,9 @@ forward; the training pieces (``blocked_attention``'s custom VJP,
 Conventions: activations are ``cfg.jdtype``, norms and softmax accumulate
 in float32; attention layouts are ``[B, S, H, D]``; per-layer parameters
 are stacked on a leading ``layers`` axis.  Initialisers draw from a
-``torch.Generator`` on the CPU (the same weights on every device) with the
-JAX package's scales.
+``torch.Generator`` on its own device (the dense families pass one on the
+CPU, the same weights on every device; the MoE family one on the target
+device) with the JAX package's scales.
 """
 from __future__ import annotations
 
@@ -26,11 +27,13 @@ from repro_torch.models.base import ModelConfig
 # ---------------------------------------------------------------------------
 def dense_init(gen, shape, dtype, in_axis: int = 0):
     std = 1.0 / math.sqrt(shape[in_axis])
-    return (torch.randn(shape, generator=gen) * std).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(dtype)
 
 
 def embed_init(gen, shape, dtype, std: float = 0.02):
-    return (torch.randn(shape, generator=gen) * std).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import layers as L
-from repro_torch.models.base import ModelConfig, register_family, tree_to
-from repro_torch.models.transformer import _stack, layer_params
+from repro_torch.models.base import (ModelConfig, register_family,
+                                     stack_layers, tree_to)
+from repro_torch.models.transformer import layer_params
 from repro_torch.search.api import resolve_device
 
 
@@ -86,8 +87,8 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     gen = torch.Generator().manual_seed(seed)
     d, dt = cfg.d_model, cfg.jdtype
     params = {"embed": L.init_embed(cfg, gen), "ln0": _ln(d, dt),
-              "layers": _stack([_init_block(cfg, gen)
-                                for _ in range(cfg.n_layers)]),
+              "layers": stack_layers(cfg.n_layers,
+                                      lambda: _init_block(cfg, gen)),
               "final_norm": _ln(d, dt)}
     return tree_to(params, dev)
 

@@ -21,7 +21,8 @@ import sys
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.base import ModelConfig, register_family, tree_to
+from repro_torch.models.base import (ModelConfig, register_family,
+                                     stack_layers, tree_to)
 from repro_torch.search.api import resolve_device
 
 
@@ -33,12 +34,6 @@ def _init_block(cfg: ModelConfig, gen):
             "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg, gen)}
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights with the JAX ``init``'s tree, dtypes and scales
     (``dense_init`` 1/sqrt(fan_in), ``embed_init`` 0.02), drawn from a
@@ -48,8 +43,8 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {"embed": L.init_embed(cfg, gen),
-              "layers": _stack([_init_block(cfg, gen)
-                                for _ in range(cfg.n_layers)]),
+              "layers": stack_layers(cfg.n_layers,
+                                      lambda: _init_block(cfg, gen)),
               "final_norm": L.init_norm(cfg)}
     return tree_to(params, dev)
 
@@ -77,12 +72,16 @@ def _block(cfg: ModelConfig, p, x, cos, sin):
     return x + L.apply_mlp(cfg, p["mlp"], h) * cfg.residual_scale, k, v
 
 
-def hidden_states(cfg: ModelConfig, params, tokens):
-    """Full-sequence forward ``tokens [B, S]`` -> final hidden
-    ``[B, S, d]``."""
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    cos, sin = L.rope_freqs(cfg, torch.arange(tokens.shape[1],
-                                              device=tokens.device))
+def hidden_states(cfg: ModelConfig, params, tokens=None, inputs_embeds=None,
+                  positions=None):
+    """Full-sequence forward of ``tokens [B, S]`` or of ``inputs_embeds
+    [B, S, d]`` (the VLM's image-then-text sequence) at ``positions``
+    (default ``0 .. S-1``) -> final hidden ``[B, S, d]``."""
+    x = inputs_embeds if inputs_embeds is not None \
+        else L.embed_tokens(cfg, params["embed"], tokens)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    cos, sin = L.rope_freqs(cfg, positions)
     for i in range(cfg.n_layers):
         x, _, _ = _block(cfg, layer_params(params, i), x, cos, sin)
     return L.apply_norm(cfg, params["final_norm"], x)

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as ssd_ops
 from repro_torch.models import layers as L
-from repro_torch.models.base import ModelConfig, register_family, tree_to
-from repro_torch.models.transformer import _stack, layer_params
+from repro_torch.models.base import (ModelConfig, register_family,
+                                     stack_layers, tree_to)
+from repro_torch.models.transformer import layer_params
 from repro_torch.search.api import resolve_device
 
 LORA_RANK = 64
@@ -98,8 +99,8 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {"embed": L.init_embed(cfg, gen),
-              "mamba": _stack([_init_mamba_block(cfg, gen)
-                               for _ in range(cfg.n_layers)]),
+              "mamba": stack_layers(cfg.n_layers,
+                                     lambda: _init_mamba_block(cfg, gen)),
               "shared": _init_shared_block(cfg, gen),
               "final_norm": {"scale": torch.ones((cfg.d_model,),
                                                  dtype=cfg.jdtype)}}

@@ -158,16 +158,89 @@ def test_rounded_p_limit_is_the_derived_bound():
     assert bool((m >= want.abs() - 1e-6).all())
 
 
-@pytest.mark.parametrize("d", [16, 32, 96])
-def test_flash_bf16_kernel_wrapper_rejects_head_dims_it_does_not_take(d):
-    """The tensor-core kernel takes D in {64, 80, 128}; the wrapper raises
-    for any other before it builds or launches anything."""
+@pytest.mark.parametrize("d,dv", [(16, 16), (32, 32), (96, 96), (192, 192),
+                                  (128, 64), (64, 128)])
+def test_flash_bf16_kernel_wrapper_rejects_head_dims_it_does_not_take(d, dv):
+    """The tensor-core kernel takes (q/k, v) head dims (64, 64), (80, 80),
+    (128, 128) and MLA's (192, 128); the wrapper raises for any other pair
+    before it builds or launches anything."""
     q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
+    v = torch.zeros(1, 4, 2, dv, dtype=torch.bfloat16)
     before = dict(tfa.launches)
     with pytest.raises(ValueError, match="head dim"):
-        tfa.launch(q, q, q, torch.empty_like(q), causal=True, q_offset=0,
+        tfa.launch(q, q, v, torch.empty_like(v), causal=True, q_offset=0,
                    logits_soft_cap=0.0, seq_k_valid=4)
     assert tfa.launches == before
+
+
+def test_flash_f32_kernel_wrapper_rejects_v_wider_than_qk():
+    q = torch.zeros(1, 4, 2, 16)
+    v = torch.zeros(1, 4, 2, 24)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.launch(q, q, v, torch.empty_like(v), causal=True, q_offset=0,
+                   logits_soft_cap=0.0, seq_k_valid=4)
+
+
+# ---------------------------------------------------------------------------
+# K4 at MLA's shape: v head dim below q/k's
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,h,hkv,d,dv,causal,cap", [
+    (2, 15, 4, 4, 24, 16, True, 0.0),     # deepseek-v2-lite smoke prefill
+    (1, 70, 4, 4, 192, 128, True, 0.0),   # deepseek-v2-lite heads
+    (2, 33, 4, 2, 40, 24, False, 0.0),
+    (1, 20, 4, 4, 24, 16, True, 30.0),
+])
+def test_flash_plain_takes_mla_value_head_dim(b, s, h, hkv, d, dv, causal,
+                                              cap):
+    """The plain K4 at q/k head dim D and v head dim Dv < D, scaled by
+    1/sqrt(D), against the JAX package's ``sdpa``, ``blocked_attention``
+    (which takes Dv != D) and its ``attention`` dispatch; the port's
+    ``attention`` sends the same call to K4."""
+    q, k, v = _rand(20 + d, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv))
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want = np.asarray(JL.sdpa(jq, jk, jv, causal=causal,
+                              logits_soft_cap=cap))
+    assert want.shape == (b, s, h, dv)
+    np.testing.assert_allclose(
+        np.asarray(JL.blocked_attention(jq, jk, jv, causal=causal, blk_q=16,
+                                        blk_k=16, logits_soft_cap=cap)),
+        want, **F32)
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              logits_soft_cap=cap)
+    assert got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    np.testing.assert_allclose(
+        TL.sdpa(_t(q), _t(k), _t(v), causal=causal,
+                logits_soft_cap=cap).numpy(), want, **F32)
+    cfg = TL.ModelConfig(name="t", family="moe", n_layers=1, d_model=64,
+                         n_heads=h, d_ff=0, vocab_size=8, dtype="float32")
+    jcfg = JL.ModelConfig(**{f: getattr(cfg, f) for f in (
+        "name", "family", "n_layers", "d_model", "n_heads", "d_ff",
+        "vocab_size", "dtype")})
+    n = dict(tfa.launches)
+    np.testing.assert_allclose(
+        TL.attention(cfg, _t(q), _t(k), _t(v), causal=causal,
+                     logits_soft_cap=cap).numpy(),
+        np.asarray(JL.attention(jcfg, jq, jk, jv, causal=causal,
+                                logits_soft_cap=cap)), **F32)
+    assert tfa.launches == n              # the plain version on the CPU
+
+
+def test_flash_plain_bf16_mla_within_rounded_p_limit():
+    """bf16 at deepseek-v2-lite's heads (192 / 128): the plain version in
+    bf16 and the JAX ``sdpa`` in bf16 (P rounded to bf16, as the
+    tensor-core kernel rounds it) both sit inside ``rounded_p_limit``."""
+    q, k, v = _rand(30, (1, 50, 4, 192), (1, 50, 4, 192), (1, 50, 4, 128))
+    tq, tk, tv = (_t(x, torch.bfloat16) for x in (q, k, v))
+    want, lim = tfr.rounded_p_limit(tq, tk, tv, atol=1e-5, causal=True)
+    assert want.shape == (1, 50, 4, 128)
+    assert _limit_share(tfa.flash_attention(tq, tk, tv, causal=True), want,
+                        lim) <= 1.0
+    bf = jnp.bfloat16
+    jax_bf16 = np.asarray(JL.sdpa(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                                  jnp.asarray(v, bf), causal=True),
+                          np.float32)
+    assert _limit_share(torch.from_numpy(jax_bf16), want, lim) <= 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,8 @@ def test_search_without_device_raises_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-1.6b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "deepseek-v2-lite-16b",
+                                  "grok-1-314b", "internvl2-2b"])
 def test_model_init_and_engine_without_device_raise_when_no_cuda(
         arch, monkeypatch):
     """A family's ``init`` / ``init_cache`` and the serving engine run on
@@ -113,6 +114,8 @@ def test_reusable_searcher_without_device_raises_when_no_cuda(monkeypatch):
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -265,3 +268,21 @@ def test_wide_waves_on_card_equal_cpu(method, wave_select, vl_mode,
     assert torch.equal(g.tree.children.cpu(), c.tree.children)
     assert torch.equal(g.tree.visits.cpu(), c.tree.visits)
     assert int(c.tree.next_free.min()) == 90
+
+
+def test_whisper_init_and_cache_without_device_raise_when_no_cuda(
+        monkeypatch):
+    """Whisper (no engine: its prefill takes frames) resolves its device
+    as every family does."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import whisper
+    cfg = get_smoke_config("whisper-base")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        whisper.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        whisper.init_cache(cfg, 1, 8)
+    params = whisper.init(cfg, seed=0, device="cpu")
+    assert {t.device.type for t in _leaves(params)} == {"cpu"}
+    cache = whisper.init_cache(cfg, 1, 8, device="cpu")
+    assert {t.device.type for t in cache.values()} == {"cpu"}

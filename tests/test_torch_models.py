@@ -61,14 +61,17 @@ def test_configs_and_model_config_match_jax():
             assert dataclasses.asdict(j) == dataclasses.asdict(t), arch
             assert (t.kv_heads, t.head_dim) == (j.kv_heads, j.head_dim)
     assert get_config("smollm-135m").jdtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TB.get_family("moe")
+    for fam in ("dense", "moe", "whisper", "rwkv6", "zamba2", "vlm"):
+        assert TB.get_family(fam).__name__.startswith("repro_torch.models.")
+    with pytest.raises(KeyError, match="unknown model family"):
+        TB.get_family("no-such-family")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_tree_dtypes_and_scales_match_jax(arch):
     jc, tc = jsmoke(arch), get_smoke_config(arch)
-    jp = _np(JB.get_family(jc).init(jc, jax.random.key(0)))
+    jp = _np(jax.jit(JB.get_family(jc).init, static_argnums=0)(
+        jc, jax.random.key(0)))
     init = TB.get_family(tc).init
     tp = init(tc, seed=3, device="cpu")
     flat_j = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
@@ -77,9 +80,11 @@ def test_init_tree_dtypes_and_scales_match_jax(arch):
     got = {}
 
     def walk(t, path):
-        for k, v in t.items():
-            p = path + f"['{k}']"
-            walk(v, p) if isinstance(v, dict) else got.__setitem__(p, v)
+        items = t.items() if isinstance(t, dict) else enumerate(t)
+        for k, v in items:
+            p = path + (f"['{k}']" if isinstance(t, dict) else f"[{k}]")
+            walk(v, p) if isinstance(v, (dict, list)) \
+                else got.__setitem__(p, v)
     walk(tp, "")
     assert set(got) == set(want)
     for k, v in want.items():
