@@ -125,6 +125,29 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               prefill-then-step within FAM_STEP_TOL (planted faults as
               for the MoE above it).  grok-1-314b runs at
               its smoke config only (~628 GB of bf16 weights)
+  7d. train  after the families, each its own line: ``train-kernels``:
+              the flash forward writing its logsumexp (kernel A,
+              ``flash_attention_lse``: output equal to the serving K4's,
+              lse within LSE_TOL of the plain ``blocked_fwd_ref``) and
+              the flash backward (kernel B, ``flash_attention_bwd``:
+              dq / dk / dv within TRAIN_GRAD_TOL normwise of the plain
+              ``blocked_bwd_ref``) at smollm-135m's and stablelm-3b's
+              training shapes in bf16 and a float32 shape with every
+              knob, planted faults above both limits, timed at smollm's
+              beside SDPA's forward and backward; ``train-small``: the
+              four dense smoke configs' ``make_train_step`` (and one
+              grad-accumulation step), card == CPU within
+              TRAIN_SMALL_TOL; ``train-full``: smollm-135m at its
+              published width through ``launch.train.build`` (bf16,
+              remat, 8 x 2048 tokens a step), step 0 with the kernels
+              against the plain versions within TRAIN_FULL_TOL (a zeroed
+              dK planted above it), tokens/s, step ms, peak memory, 60
+              A and 30 B launches a step, one step traced
+              (``chiprun_out/profile_train.txt``), then 12 steps under
+              ``TrainerLoop`` with a failure at step 7 and a restart
+              from step 5 whose losses equal an uninterrupted run's bit
+              for bit; ``serve-launch``: ``launch.serve.main`` greedy
+              and ``--mcts`` on smollm-smoke, card == CPU
   8. profile  device busy share and time by kernel of the fused P-game
               runs, one LM token's search and one engine step of each
               recurrent run (torch.profiler), tables in
@@ -951,7 +974,8 @@ def phase_full(dev):
     counts = all_launches()                # read just after the main path
     for k, v in counts.items():
         if v == 0 and k in SOURCES \
-                and k not in LM_KERNELS + REC_KERNELS + FAM_KERNELS:
+                and k not in LM_KERNELS + REC_KERNELS + FAM_KERNELS \
+                + TRAIN_KERNELS:
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
@@ -967,7 +991,8 @@ PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
                 "::da_combine<", "sw_se_kernel", "sw_bes_kernel",
                 "sw_b_kernel", "uct_tiles_kernel", "uct_running_kernel",
                 "::wkv6_kernel<", "::ssd_kernel<", "::wkv6_chunk_kernel(",
-                "::ssd_chunk_kernel(")
+                "::ssd_chunk_kernel(", "::fa_bwd_delta_kernel<",
+                "::fa_bwd_dkdv_kernel<", "::fa_bwd_dq_kernel<")
 
 
 def profile_one(what: str, run):
@@ -3846,6 +3871,528 @@ def phase_whisper_full(dev):
     return run, (counts,)
 
 
+# ---------------------------------------------------------------------------
+# training (the dense family): kernel A (K4 writing its logsumexp) and
+# kernel B (the flash backward) against their plain versions, smoke-config
+# steps card == CPU, smollm-135m at its published width under the
+# fault-tolerant loop, and the serving driver
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "smollm-135m"
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")  # training
+TRAIN_SMALL_ARCHS = ("smollm-135m", "qwen2-0.5b", "minicpm-2b",
+                     "stablelm-3b")
+TRAIN_SMALL = dict(batch=2, seq=40, steps=3, lr=1e-3)
+# smollm's pre-training context: 8 x 2048 = 16,384 tokens a step
+TRAIN_FULL = dict(batch=8, seq=2048, steps=12, ckpt_every=5, fail_at=7,
+                  lr=3e-4, timed=5)
+# the train-kernels shapes: smollm-135m's and stablelm-3b's training
+# attention in bf16, and the float32 knobs (Sq, Sk not multiples of the 64
+# tile, q_offset, seq_k_valid < Sk, a soft cap) at the smoke head dim
+TRAIN_KERNEL_SHAPES = (
+    ("smollm", 8, 2048, 2048, 9, 3, 64, "bf16", dict(causal=True)),
+    ("stablelm", 2, 1024, 1024, 32, 32, 80, "bf16", dict(causal=True)),
+    ("f32-knobs", 2, 77, 77, 4, 2, 16, "f32",
+     dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)))
+# kernel A's lse against the plain version in float32 on the same inputs,
+# absolute: the scores summed in another order, exp2 / log2 against exp /
+# log, of values up to log(2048) + max score
+LSE_TOL = 1e-4
+# kernel B's dq / dk / dv against the plain version run in float32 on the
+# same operands, normwise (max |got - want| / max |want|): float32, the
+# order of the sums; bf16, the kernel rounds each gradient to bf16 once
+# (half a bf16 ulp of the largest element), doubled for the sums
+TRAIN_GRAD_TOL = {"f32": 1e-5, "bf16": 2.0 ** -7}
+# the float32 smoke steps, card against CPU (the kernels against the plain
+# versions and cuBLAS against the CPU's float32 products, no TF32): loss
+# and lr relative, grad_norm relative, parameters absolute + relative
+TRAIN_SMALL_TOL = dict(loss=1e-5, grad_norm=1e-4, atol=2e-5, rtol=1e-4)
+# smollm-135m's step 0 in bf16, the kernels against the plain versions on
+# the card: the bf16 forward's roundings (P before PV, the activations)
+# flip where the float32 sums differ and spread through 30 layers; held
+# per stacked leaf and layer normwise
+TRAIN_FULL_TOL = dict(loss=2e-3, grad_norm=2e-2, leaf=5e-2)
+
+
+def visible_pairs(b, sq, sk, h, causal=True, q_offset=0, seq_k_valid=None,
+                  **_):
+    """(row, key) pairs an attention call computes: keys below
+    seq_k_valid and, causal, at or below the row's position."""
+    kv = sk if seq_k_valid is None else min(seq_k_valid, sk)
+    if not causal:
+        return b * h * sq * kv
+    n = sum(max(0, min(kv, i + q_offset + 1)) for i in range(sq))
+    return b * h * n
+
+
+def train_bounds(q, k, v, kw):
+    """(kernel A's bound, kernel B's bound): every operand read and result
+    written once (lse float32), against 2 D flops per visible pair and
+    product (A: QK^T and PV; B: QK^T, dO V^T, dV, dK and dQ) at the peak of
+    the inputs' type."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    es = q.element_size()
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    pairs = visible_pairs(b, sq, sk, h, **kw)
+    io = q.numel() + k.numel() + v.numel() + b * sq * h * v.shape[-1]
+    lse = 4 * b * h * sq
+    # A: q, k, v in, out and lse out; B: q, k, v, out, dout and lse in,
+    # dq, dk, dv out
+    return (bound_ms(es * io + lse, 2 * 2 * d * pairs, peak),
+            bound_ms(es * 2 * io + lse, 5 * 2 * d * pairs, peak))
+
+
+def normwise(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def train_kernel_case(dev, spec):
+    """Kernels A and B at one shape against their plain versions: A's
+    output equal to the serving kernel's bit for bit and its lse within
+    LSE_TOL (a planted fault, the diagonal one position late, above it); B
+    within TRAIN_GRAD_TOL normwise (a planted fault, one kv head's dk
+    zeroed, far above it).  Then the times of A, B and their plain
+    versions, in turns with SDPA's forward / backward where SDPA computes
+    the same function (causal, no offset, cap or padding)."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as R
+    name, b, sq, sk, h, hkv, d, dts, kw = spec
+    dt = torch.bfloat16 if dts == "bf16" else torch.float32
+    gen = torch.Generator(dev).manual_seed(31)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dt)  # noqa
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
+        rnd(b, sq, h, d)
+    out, lse = FA.flash_attention_lse(q, k, v, **kw)
+    if not torch.equal(out, FA.flash_attention(q, k, v, **kw)):
+        fail(f"train-kernels {name}: kernel A's output differs from the "
+             "serving kernel's on the same inputs")
+    f32 = [t.float() for t in (q, k, v)]
+    blk = dict(blk_q=min(256, sq), blk_k=min(1024, sk))
+    out_ref, lse_ref = R.blocked_fwd_ref(*f32, **blk, **kw)
+    lse_err = max_diff(lse, lse_ref)
+    _, lse_bad = FA.flash_attention_lse(
+        q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) + 1))
+    planted_lse = max_diff(lse_bad, lse_ref)
+    if lse_err > LSE_TOL or planted_lse <= LSE_TOL:
+        fail(f"train-kernels {name}: kernel A's lse differs from the plain "
+             f"version by {lse_err} (limit {LSE_TOL}; planted fault "
+             f"{planted_lse})")
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = R.blocked_bwd_ref(*f32, out.float(), lse, dout.float(), **blk,
+                             **kw)
+    tol = TRAIN_GRAD_TOL[dts]
+    errs = {n: normwise(g, w) for n, g, w in zip(("dq", "dk", "dv"), grads,
+                                                  want)}
+    bad = grads[1].clone()
+    bad[:, :, 0] = 0
+    planted = normwise(bad, want[1])
+    if max(errs.values()) > tol or planted <= 10 * tol:
+        fail(f"train-kernels {name}: kernel B's gradients differ from the "
+             f"plain version normwise by {errs} (limit {tol}; planted fault "
+             f"{planted})")
+    res = {"shape": [b, sq, sk, h, hkv, d], "dtype": dts, "knobs": kw,
+           "lse_err": lse_err, "lse_planted": planted_lse,
+           "out_abs_err": max_diff(out, out_ref),
+           "grad_normwise": errs, "grad_planted": planted,
+           "grad_abs_err": max(max_diff(g, w) for g, w in zip(grads, want))}
+    torch.cuda.synchronize()
+    import torch.nn.functional as F
+    ca = {"ms": (lambda _: FA.flash_attention_lse(q, k, v, **kw), {}),
+          "plain_ms": (lambda _: FA.flash_attention_lse(q, k, v, impl="ref",
+                                                        **kw), {})}
+    cb = {"ms": (lambda _: FA.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  **kw), {}),
+          "plain_ms": (lambda _: FA.flash_attention_bwd(
+              q, k, v, out, lse, dout, impl="ref", **kw), {})}
+    if kw == {"causal": True}:           # SDPA computes the same function
+        gqa = hkv != h
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            enable_gqa=gqa)
+        do = dout.transpose(1, 2)
+        ca["sdpa_ms"] = (lambda _: sdpa_fn(q, k, v, is_causal=True,
+                                           enable_gqa=gqa), {})
+        cb["sdpa_ms"] = (lambda _: torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True), {})
+    ba, bb = train_bounds(q, k, v, kw)
+    res["a"] = dict({"sdpa_ms": None}, **time_turns(ca), bound=ba)
+    res["b"] = dict({"sdpa_ms": None}, **time_turns(cb), bound=bb)
+    if name == "smollm":                 # the main path's shape
+        HOST["flash_attention_lse"] = host_us(
+            lambda _: FA.flash_attention_lse(q, k, v, **kw))
+        HOST["flash_attention_bwd"] = host_us(
+            lambda _: FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+    return res
+
+
+def phase_train_kernels(dev):
+    """Kernels A and B at TRAIN_KERNEL_SHAPES (see ``train_kernel_case``),
+    each timed; the kernels line's rows carry smollm-135m's training
+    shape (the main path's).  Returns those rows for
+    ``flash_attention_lse`` and ``flash_attention_bwd`` (less their
+    launches) and the checks."""
+    cases = {spec[0]: train_kernel_case(dev, spec)
+             for spec in TRAIN_KERNEL_SHAPES}
+    t = cases["smollm"]
+    rows = {}
+    for key, part, err in (
+            ("flash_attention_lse", "a",
+             max(c["lse_err"] for c in cases.values())),
+            ("flash_attention_bwd", "b",
+             max(c["grad_abs_err"] for c in cases.values()))):
+        p = t[part]
+        rows[key] = {"max_abs_err": err, "ms": p["ms"],
+                     "plain_ms": p["plain_ms"], "bound": p["bound"],
+                     "sdpa_ms": p["sdpa_ms"]}
+    say("train-kernels " + "; ".join(
+        f"{n} {c['dtype']} {c['shape']}: lse err {c['lse_err']:.2e} "
+        f"(planted {c['lse_planted']:.2e}), grads normwise "
+        + ",".join(f"{g}={e:.2e}" for g, e in c["grad_normwise"].items())
+        + f" (planted {c['grad_planted']:.2e}); " + ", ".join(
+            f"{x} ms={c[x]['ms']:.4f},plain_ms={c[x]['plain_ms']:.4f},"
+            f"sdpa_ms={c[x]['sdpa_ms']},bound_ms={c[x]['bound'][0]:.5f} "
+            f"({c[x]['bound'][1]})" for x in ("a", "b"))
+        for n, c in cases.items())
+        + f"; host_us A={HOST['flash_attention_lse']:.1f} "
+        f"B={HOST['flash_attention_bwd']:.1f} (A: flash_attention_lse, B: "
+        "flash_attention_bwd, sdpa_ms of B: SDPA's backward)")
+    return rows, cases
+
+
+def add_counts(total: dict, got: dict) -> None:
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+
+
+def hold_trees(what, got, want, atol, rtol) -> float:
+    """Every leaf of ``got`` within ``atol + rtol |want|`` of ``want``'s;
+    returns the largest |diff|."""
+    from repro_torch.core.pytree import flatten
+    worst = 0.0
+    for g, w in zip(flatten(got)[0], flatten(want)[0]):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        d = (g - w).abs()
+        if bool((d > atol + rtol * w.abs()).any()):
+            fail(f"{what}: a leaf differs by {float(d.max())} (limit {atol} "
+                 f"+ {rtol} |want|)")
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
+def phase_train_small(dev, counts: dict):
+    """``make_train_step`` for TRAIN_SMALL["steps"] steps on each dense
+    smoke config (AdamW; WSD for minicpm, cosine otherwise), on the card
+    from the port's ``init`` against the same on the CPU: losses, lr,
+    grad_norm and the parameters within TRAIN_SMALL_TOL; each card step
+    launches kernel A and kernel B once a layer (no remat at smoke size).
+    Then one 2-microbatch ``make_grad_accum_train_step`` on smollm.  The
+    card steps' launches add to ``counts``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import (make_grad_accum_train_step,
+                                          make_train_step)
+    from repro_torch.launch.train import schedule
+    from repro_torch.models.base import get_family, tree_to
+    from repro_torch.optim import adamw
+    tol = TRAIN_SMALL_TOL
+    sp = TRAIN_SMALL
+    out = {}
+    for arch in TRAIN_SMALL_ARCHS + ("accum",):
+        cfg = get_smoke_config(TRAIN_ARCH if arch == "accum" else arch)
+        opt = adamw()
+        sched = schedule(cfg.name, sp["lr"], 10)
+        n_micro = 2 if arch == "accum" else 0
+        step = make_grad_accum_train_step(cfg, opt, sched, n_micro) \
+            if n_micro else make_train_step(cfg, opt, sched)
+        pc = get_family(cfg).init(cfg, seed=0, device="cpu")
+        oc = opt.init(pc)
+        pd, od = tree_to(pc, dev), tree_to(oc, dev)
+        dcfg = DataConfig(batch_size=sp["batch"] * max(n_micro, 1),
+                          seq_len=sp["seq"])
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for s in range(1 if n_micro else sp["steps"]):
+            batch = synthetic_batch(cfg, dcfg, s)
+            if n_micro:
+                batch = {k: v.reshape((n_micro, -1) + v.shape[1:])
+                         for k, v in batch.items()}
+            (pd, od, md), c = counted(lambda: step(pd, od, batch))
+            hold_counts(f"train-small {arch} step {s}", c, {
+                "flash_attention_lse": cfg.n_layers * max(n_micro, 1),
+                "flash_attention_bwd": cfg.n_layers * max(n_micro, 1)})
+            add_counts(counts, c)
+            pc, oc, mc = step(pc, oc, batch)
+            for key in ("loss", "lr", "grad_norm"):
+                a, w = float(md[key]), float(mc[key])
+                r = abs(a - w) / max(abs(w), 1e-30)
+                if r > tol["grad_norm" if key == "grad_norm" else "loss"]:
+                    fail(f"train-small {arch} step {s}: {key} {a} on the "
+                         f"card, {w} on the CPU")
+                if key in worst:
+                    worst[key] = max(worst[key], r)
+        if int(od["step"]) != int(oc["step"]):
+            fail(f"train-small {arch}: optimizer steps differ")
+        worst["params"] = hold_trees(f"train-small {arch} parameters", pd,
+                                     pc, tol["atol"], tol["rtol"])
+        worst["adam_m"] = hold_trees(f"train-small {arch} Adam m", od["m"],
+                                     oc["m"], tol["atol"], tol["rtol"])
+        out[arch] = worst
+    say("train-small " + "; ".join(
+        f"{a}: loss rel {w['loss']:.1e}, grad_norm rel {w['grad_norm']:.1e},"
+        f" params max |diff| {w['params']:.1e}" for a, w in out.items())
+        + f" (card == CPU over {sp['steps']} steps, 1 for the 2-microbatch "
+        "accum step; limits " + json.dumps(tol) + ")")
+    return out
+
+
+def leaf_errors(got, want) -> dict:
+    """Normwise error of every stacked leaf's layer slice (and of every
+    other leaf), by path."""
+    out = {}
+
+    def walk(g, w, path):
+        if isinstance(g, dict):
+            for k in g:
+                walk(g[k], w[k], path + (k,))
+        elif path[0] == "layers":
+            for i in range(g.shape[0]):
+                out["/".join(path) + f"[{i}]"] = normwise(g[i], w[i])
+        else:
+            out["/".join(path)] = normwise(g, w)
+    walk(got, want, ())
+    return out
+
+
+def phase_train_full(dev, counts: dict):
+    """smollm-135m at its published width (bf16, remat, ce_chunk 512)
+    through ``launch.train.build`` (AdamW + cosine, clip 1.0) at
+    TRAIN_FULL: step 0's loss, grad norm and every leaf's gradient with
+    the kernels against the plain versions on the card within
+    TRAIN_FULL_TOL, a planted fault (one layer's dK zeroed) above it;
+    kernel A / B launches a step (remat: two forwards and one backward a
+    layer); TRAIN_FULL["timed"] steps timed and one traced
+    (``profile_train.txt``); then TRAIN_FULL["steps"]
+    steps under ``TrainerLoop`` with a checkpoint every ``ckpt_every``,
+    uninterrupted and with a transient failure at ``fail_at`` restarted
+    by ``train_with_restarts``: the losses after the restart equal the
+    uninterrupted run's bit for bit."""
+    import contextlib
+    import functools
+    import shutil
+    from repro_torch.data import Prefetcher, make_batch_iterator
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.base import count_params, get_family
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.runtime.ft import (FTConfig, TrainerLoop,
+                                        train_with_restarts)
+    tf = TRAIN_FULL
+    cfg, step_fn, params, opt0, dcfg = train.build(
+        TRAIN_ARCH, False, tf["batch"], tf["seq"], tf["lr"], tf["steps"],
+        device=dev)
+    if not (cfg.remat and cfg.jdtype == torch.bfloat16
+            and cfg.ce_chunk == 512):
+        fail(f"train-full: {cfg.name} is not bf16 / remat / ce_chunk 512")
+    fam = get_family(cfg)
+    batch0 = {k: torch.as_tensor(v).to(dev)
+              for k, v in synthetic_batch(cfg, dcfg, 0).items()}
+
+    def grads_of():
+        (loss, _), g = value_and_grad(
+            lambda p: fam.loss_fn(cfg, p, batch0), params)
+        return float(loss), g, float(clip_by_global_norm(g, 1.0)[1])
+
+    @contextlib.contextmanager
+    def patched(**fns):
+        old = {k: getattr(FA, k) for k in fns}
+        for k, f in fns.items():
+            setattr(FA, k, f)
+        try:
+            yield
+        finally:
+            for k, f in old.items():
+                setattr(FA, k, f)
+
+    (loss_k, g_k, gn_k), c0 = counted(grads_of)
+    want0 = {"flash_attention_lse": 2 * cfg.n_layers,
+             "flash_attention_bwd": cfg.n_layers}
+    hold_counts("train-full step 0's gradient", c0, want0)
+    with patched(flash_attention_lse=functools.partial(
+            FA.flash_attention_lse, impl="ref"),
+            flash_attention_bwd=functools.partial(
+                FA.flash_attention_bwd, impl="ref")):
+        loss_p, g_p, gn_p = grads_of()
+    real_bwd, calls = FA.flash_attention_bwd, []
+
+    def zero_dk_once(*a, **kw):           # layer 15's dK (backward order)
+        dq, dk, dv = real_bwd(*a, **kw)
+        calls.append(1)
+        return (dq, torch.zeros_like(dk), dv) if len(calls) == 15 \
+            else (dq, dk, dv)
+    with patched(flash_attention_bwd=zero_dk_once):
+        _, g_bad, _ = grads_of()
+    errs = leaf_errors(g_k, g_p)
+    worst = max(errs, key=errs.get)
+    planted = max(leaf_errors(g_bad, g_p).values())
+    tol = TRAIN_FULL_TOL
+    loss_r = abs(loss_k - loss_p) / abs(loss_p)
+    gn_r = abs(gn_k - gn_p) / abs(gn_p)
+    if loss_r > tol["loss"] or gn_r > tol["grad_norm"] \
+            or errs[worst] > tol["leaf"] or planted <= tol["leaf"]:
+        fail(f"train-full step 0, kernels vs plain versions: loss {loss_k} "
+             f"vs {loss_p}, grad norm {gn_k} vs {gn_p}, worst leaf {worst} "
+             f"{errs[worst]}, planted fault {planted} (limits "
+             f"{json.dumps(tol)})")
+    del g_k, g_p, g_bad
+
+    # steps timed on the card (the step synchronises on its loss)
+    batches = [synthetic_batch(cfg, dcfg, s) for s in range(tf["timed"])]
+    p, o = params, opt0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for bt in batches:
+        t0 = time.perf_counter()
+        (p, o, m), c = counted(lambda: step_fn(p, o, bt))
+        secs.append(time.perf_counter() - t0)
+        hold_counts("train-full timed step", c, want0)
+        add_counts(counts, c)
+    peak = torch.cuda.max_memory_allocated()
+    # one step traced (after a warm and an untraced one): where it goes
+    prof, lines = profile_one(f"train step {cfg.name} {tf['batch']} x "
+                              f"{tf['seq']}",
+                              lambda: step_fn(p, o, batches[0]))
+    write_out("profile_train.txt", lines)
+    del p, o
+    step_s = statistics.median(secs)
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def factory(sub, fail_at):
+        built = []
+
+        def make():
+            if built:                     # the crashed loop's save commits
+                built[-1].ckpt.wait()
+            ft = FTConfig(ckpt_dir=str(ckpt / sub),
+                          ckpt_every=tf["ckpt_every"],
+                          fail_at_step=None if built else fail_at)
+            built.append(TrainerLoop(
+                step_fn, params, opt0,
+                lambda s: Prefetcher(make_batch_iterator(cfg, dcfg, s)), ft))
+            return built[-1]
+        return make
+
+    t0 = time.perf_counter()
+    ref, c1 = counted(lambda: factory("ref", None)().run(tf["steps"]))
+    ref_s = time.perf_counter() - t0
+    out, c2 = counted(lambda: train_with_restarts(
+        factory("ft", tf["fail_at"]), tf["steps"], max_restarts=1))
+    for c in (c1, c2):
+        add_counts(counts, c)
+    resumed = (tf["fail_at"] // tf["ckpt_every"]) * tf["ckpt_every"]
+    if out["restarts"] != 1 or out["step"] != tf["steps"] \
+            or out["losses"] != ref["losses"][resumed:]:
+        fail(f"train-full: the restarted run's losses {out['losses']} are "
+             f"not the uninterrupted run's {ref['losses'][resumed:]} "
+             f"(restarts {out['restarts']}, step {out['step']})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    toks = tf["batch"] * tf["seq"]
+    res = {"params": count_params(params), "step0": {
+               "loss": loss_k, "loss_plain": loss_p, "grad_norm": gn_k,
+               "grad_norm_plain": gn_p, "worst_leaf": worst,
+               "worst_leaf_err": errs[worst], "planted": planted},
+           "step_ms": [1e3 * s for s in secs],
+           "median_step_ms": 1e3 * step_s,
+           "tokens_per_s": toks / step_s, "peak_mem_bytes": peak,
+           "launches_per_step": want0, "losses": ref["losses"],
+           "resumed_losses": out["losses"], "run_s": ref_s,
+           "profile": prof}
+    say(f"train-full {cfg.name} ({res['params']:,} parameters, bf16, remat, "
+        f"ce_chunk {cfg.ce_chunk}) batch {tf['batch']} x {tf['seq']}: step "
+        f"0 kernels vs plain loss {loss_k:.6f} / {loss_p:.6f}, grad norm "
+        f"{gn_k:.5f} / {gn_p:.5f}, worst leaf {worst} {errs[worst]:.2e} "
+        f"(planted {planted:.2f}; limits {json.dumps(tol)}); median step "
+        f"{res['median_step_ms']:.1f} ms, {res['tokens_per_s']:,.0f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB; K4 A {want0['flash_attention_lse']} "
+        f"/ B {want0['flash_attention_bwd']} a step; {tf['steps']} steps "
+        f"under TrainerLoop (losses {ref['losses'][0]:.4f} -> "
+        f"{ref['losses'][-1]:.4f}), failure at {tf['fail_at']}, restart from "
+        f"{resumed}: {len(out['losses'])} losses bit-equal")
+    return res
+
+
+GREEDY_TOL = 1e-4   # a card token's logit below the CPU's best, float32
+
+
+def phase_serve_launch(dev):
+    """The serving entry point ``launch.serve.main`` on smollm-smoke, greedy
+    and ``--mcts``, on the card (its default device).  Greedy: every
+    request's max_new tokens, each an argmax of the CPU's teacher-forced
+    logits within GREEDY_TOL (float32 sums in other orders may flip a
+    near tie, so the token streams are compared, not required equal);
+    ``--mcts``: the tokens equal ``mcts_decode`` on the CPU with the
+    wave select that "auto" takes on the card ("mega"; on the CPU it takes
+    "scan", another order of the wave's selections, so serve's own
+    CPU run differs).  Its CPU runs are printed beside.  Output
+    in ``chiprun_out/serve_launch.txt``.  Returns the card runs'
+    launches."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.mcts_decode import MCTSDecodeConfig, mcts_decode
+    argv = ["--arch", TRAIN_ARCH, "--smoke"]
+    buf = io.StringIO()
+    counts = {}
+    with contextlib.redirect_stdout(buf):
+        g, c = counted(lambda: serve.main(argv))
+        add_counts(counts, c)
+        m, c = counted(lambda: serve.main(argv + ["--mcts"]))
+        add_counts(counts, c)
+        g_cpu = serve.main(argv + ["--device", "cpu"])
+        m_cpu = serve.main(argv + ["--mcts", "--device", "cpu"])
+    write_out("serve_launch.txt", buf.getvalue().splitlines())
+    cfg = get_smoke_config(TRAIN_ARCH)
+    params = T.init(cfg, seed=0, device="cpu")
+    gap = 0.0
+    for uid, toks in g["outputs"].items():
+        prompt = g["prompts"][uid]
+        if len(toks) != 16:
+            fail(f"serve-launch: request {uid} got {len(toks)} tokens")
+        seq = torch.tensor([prompt + toks[:-1]])
+        with torch.no_grad():
+            lg = T.logits_fn(cfg, params, seq)[0, len(prompt) - 1:].float()
+        picked = lg.gather(-1, torch.tensor(toks)[:, None])[:, 0]
+        gap = max(gap, float((lg.max(-1).values - picked).max()))
+    if gap > GREEDY_TOL:
+        fail(f"serve-launch: a greedy token on the card is {gap} below the "
+             f"CPU's best logit (limit {GREEDY_TOL})")
+    want = mcts_decode(cfg, params, m["prompt"], 16, MCTSDecodeConfig(
+        budget=16, lanes=2, wave_select="mega"), device="cpu")
+    if m["tokens"] != want:
+        fail(f"serve-launch: --mcts gave {m['tokens']} on the card, "
+             f"{want} on the CPU (mega)")
+    for k in ("flash_attention", "decode_attention", "bes"):
+        if counts.get(k, 0) == 0:
+            fail(f"serve-launch: kernel {k} was not launched")
+    same = sum(g["outputs"][u] == g_cpu["outputs"][u] for u in g["outputs"])
+    say(f"serve-launch smollm-smoke: greedy {len(g['outputs'])} requests x "
+        f"16 tokens, each within {gap:.2e} of the CPU's best logit (limit "
+        f"{GREEDY_TOL}), {same} of {len(g['outputs'])} streams equal to the "
+        f"CPU run's; --mcts 16 tokens == the CPU's with the fused wave "
+        f"(the driver on the CPU, wave select scan: "
+        f"{'equal' if m['tokens'] == m_cpu['tokens'] else 'other'} tokens); "
+        f"launches {counts}")
+    return counts
+
+
 SOURCES = {
     "se": ("src/repro_torch/csrc/search_wave.cu",
            "src/repro/kernels/search_wave/kernel.py:403"),
@@ -3870,6 +4417,10 @@ SOURCES = {
         "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
+    "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:74"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:211"),
     "wkv6_step": ("src/repro_torch/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:69"),
     "ssd_step": ("src/repro_torch/csrc/ssm_scan.cu",
@@ -4015,13 +4566,30 @@ def main() -> int:
                  ("decode_attention",
                   fam_full["whisper"]["k3_check"]["bf16"])):
         attn[k]["max_abs_err"] = max(attn[k]["max_abs_err"], e)
+    # training: kernels A / B, the dense smoke steps and smollm-135m at its
+    # published width (one main path), then the serving driver (another)
+    with clock("train_kernels"):
+        train_rows, train_kern = phase_train_kernels(dev)
+    attn.update(train_rows)
+    torch.cuda.synchronize()
+    reset_launches()
+    train_counts: dict = {}
+    with clock("train_small"):
+        train_small = phase_train_small(dev, train_counts)
+    with clock("train_full"):
+        train_full = phase_train_full(dev, train_counts)
+    torch.cuda.synchronize()
+    reset_launches()
+    with clock("serve_launch"):
+        serve_counts = phase_serve_launch(dev)
     with clock("profile"):
         prof = phase_profile(dev)
     # launches on the main paths: the float32 smoke runs, P-game, LM
     # decode cold and with the carries, the sharded paths, the engines,
     # the other families (smoke and full width)
     paths = (small_counts, counts, lm_run["launches"], lm_carry["launches"],
-             shard_counts, rec_counts, fam_small_counts, *fam_counts)
+             shard_counts, rec_counts, fam_small_counts, *fam_counts,
+             train_counts, serve_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
@@ -4088,7 +4656,11 @@ def main() -> int:
               "rec_f32_err": rec_f32, "rec_small_tokens": rec_small,
               "rec_full": rec_runs, "rec_launches": rec_counts,
               "rec_profile": rec_prof, "families_small": fam_small,
-              "families_full": fam_full, "launches_total": total,
+              "families_full": fam_full, "train_kernels": train_kern,
+              "train_small": train_small, "train_full": train_full,
+              "launches_train": train_counts,
+              "launches_serve_launch": serve_counts,
+              "launches_total": total,
               "launches_small": small_counts, "host_us": HOST,
               "host_us_spread": HOST_SPREAD, "chains": CHAINS,
               "k2a": K2A, "phase_s": PHASE_S,

@@ -1,6 +1,6 @@
 """The state carry between the JAX package's ``TreeArena`` and the port's,
-the JAX model parameters as the port's, and the serving searcher's
-cross-token carry in both layouts.
+the JAX model parameters and optimizer state as the port's and back, and
+the serving searcher's cross-token carry in both layouts.
 
 A search tree is this system's state, as weights are a model's: to start
 both implementations from the same mid-search tree, a JAX arena's leaves
@@ -90,7 +90,10 @@ def params_from_numpy(tree, device="cpu"):
     """The port's parameter tree from a JAX parameter pytree whose leaves
     were taken with ``np.asarray`` (same keys, lists stay lists; bfloat16
     leaves, which numpy holds as ``ml_dtypes.bfloat16``, become
-    ``torch.bfloat16``)."""
+    ``torch.bfloat16``).  An optimizer state of ``repro.optim`` (``{"m",
+    "v", "step"}``: trees like the parameters' and an int32 scalar, a
+    0-dim tensor here) converts the same way; ``tree_to_numpy`` goes
+    back."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -100,6 +103,17 @@ def params_from_numpy(tree, device="cpu"):
         t = torch.from_numpy(np.array(x.view(np.uint16)).astype(np.int32))
         return (t << 16).view(torch.float32).to(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(x)).to(device)
+
+
+def tree_to_numpy(tree):
+    """Numpy leaves of a port tree (parameters, optimizer state) in the
+    JAX package's layout, for ``jnp.asarray`` there; bfloat16 leaves come
+    back as float32 (exact: cast them back with ``.astype``)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_numpy(v) for v in tree]
+    return _to_numpy(tree)
 
 
 _META = ("len", "plen", "logits")

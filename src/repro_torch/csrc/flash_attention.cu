@@ -5,6 +5,12 @@
 //                                         fa_kernel (float32)
 // and implements what that path drops: q_offset and logits_soft_cap.
 //
+// Training: both kernels also write, when given an lse pointer, each
+// row's natural-log logsumexp of its scaled, capped, masked scores ([B, H,
+// Sq] float32; (m + log2 l) ln 2 from the log2-domain running max and the
+// float32 sum of P, before P is rounded; +inf for a row with no key), for
+// the backward of flash_attention_bwd.cu.  The serving path passes nullptr.
+//
 // Layout: q [B, Sq, H, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv, Dv], out
 // [B, Sq, H, Dv], row-major (the public layout of the port's wrapper, read
 // in place: no transpose or padding copy).  GQA: head h reads kv head
@@ -249,6 +255,13 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + a * R * 128, map, bar, a * 64, hd, row, b);
 }
 
+// The natural-log logsumexp of a row from its log2-domain max m and sum l
+// (of 2^(s - m)); +inf for a row with no key, so that the backward's
+// exp(s - lse) is 0 there, as the forward's output is.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -273,9 +286,9 @@ __global__ void __launch_bounds__(128)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
-                __nv_bfloat16* __restrict__ out, int sq, int sk, int seq_k,
-                int h, int hkv, int causal, int q_offset, float scale,
-                float cap) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int sq, int sk, int seq_k, int h, int hkv, int causal,
+                int q_offset, float scale, float cap) {
   using S = WgmmaShape<D, DV>;
   constexpr int DP = S::DP, DVP = S::DVP, QTILE = S::QTILE;
   constexpr int KTILE = S::KTILE, VTILE = S::VTILE;
@@ -439,6 +452,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   l_b += __shfl_xor_sync(~0u, l_b, 2);
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {   // the quad's rows, natural log
+    float* lb = lse + (size_t)bh * sq;
+    if (qi_a < sq) lb[qi_a] = row_lse(m_a, l_a);
+    if (qi_b < sq) lb[qi_b] = row_lse(m_b, l_b);
+  }
   const size_t q_ld = (size_t)h * DV;
   __nv_bfloat16* ob = out + (size_t)b * sq * q_ld + (size_t)hh * DV;
 #pragma unroll
@@ -520,7 +538,8 @@ bool tensor_map(CUtensorMap* out, const void* base, int b, int s, int h,
 
 template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int sq, int sk, int seq_k, int h, int hkv, int causal,
+                 float* lse, int b, int sq, int sk, int seq_k, int h, int hkv,
+                 int causal,
                  int q_offset, float scale, float cap, cudaStream_t stream) {
   constexpr int SMEM = WgmmaShape<D, DV>::SMEM;
   static cudaError_t attr = cudaFuncSetAttribute(   // once per (D, DV)
@@ -536,7 +555,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   dim3 grid((sq + TM - 1) / TM, b * h);
   fa_wgmma_kernel<D, DV><<<grid, 128, SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, sq, sk, seq_k, h, hkv, causal,
+      mq, mk, mv, (__nv_bfloat16*)out, lse, sq, sk, seq_k, h, hkv, causal,
       q_offset, scale, cap);
   return (int)cudaGetLastError();
 }
@@ -639,9 +658,9 @@ __device__ __forceinline__ float at(const float4& t, int e) {
 template <int DP>
 __global__ void __launch_bounds__(FTHREADS, F32Shape<DP>::MIN_BLOCKS)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ out, int sq,
-          int sk, int seq_k, int h, int hkv, int d, int dv, int causal,
-          int q_offset, float scale, float cap) {
+          const float* __restrict__ v, float* __restrict__ out,
+          float* __restrict__ lse, int sq, int sk, int seq_k, int h, int hkv,
+          int d, int dv, int causal, int q_offset, float scale, float cap) {
   using S = F32Shape<DP>;
   constexpr int LD = S::LD, TILE = S::TILE, CPT = S::CPT, CW = S::CW;
   extern __shared__ __align__(16) float fsm[];
@@ -832,6 +851,8 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       li += __shfl_xor_sync(~0u, li, off);
     const float inv = 1.0f / fmaxf(li, 1e-30f);
     const int qi = q0 + row0 + 2 * i;
+    if (lse != nullptr && cg == 0 && qi < sq)
+      lse[(size_t)bh * sq + qi] = row_lse(m[i], li);
     if (qi < sq) {
 #pragma unroll
       for (int mm = 0; mm < CPT / CW; ++mm)
@@ -845,10 +866,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int sk, int seq_k, int h, int hkv, int d, int dv,
-               int causal, int q_offset, float scale, float cap,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int sq, int sk, int seq_k, int h, int hkv,
+               int d, int dv, int causal, int q_offset, float scale,
+               float cap, cudaStream_t stream) {
   constexpr int SMEM = F32Shape<DP>::SMEM;
   static cudaError_t attr = cudaFuncSetAttribute(   // once per DP
       fa_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -858,8 +879,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(b * h), (unsigned)tiles);
   fa_kernel<DP><<<grid, FTHREADS, SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk,
-      seq_k, h, hkv, d, dv, causal, q_offset, scale, cap);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+      sq, sk, seq_k, h, hkv, d, dv, causal, q_offset, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -867,43 +888,47 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
 
 // Each returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
 // shapes the kernel does not take.  d is q's and k's head dim, dv v's and
-// out's.  float32: dv <= d <= 128.
+// out's.  float32: dv <= d <= 128.  lse: nullptr, or [B, H, Sq] float32
+// that receives each row's natural-log logsumexp of its scaled, capped,
+// masked scores (+inf for a row with no key) for the backward.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int b, int sq,
-                                   int sk, int seq_k, int h, int hkv, int d,
-                                   int dv, int causal, int q_offset,
-                                   float scale, float cap, void* stream) {
+                                   const void* v, void* out, void* lse,
+                                   int b, int sq, int sk, int seq_k, int h,
+                                   int hkv, int d, int dv, int causal,
+                                   int q_offset, float scale, float cap,
+                                   void* stream) {
   if (dv < 1 || dv > d || d > MAX_D || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 16)
-    return launch_f32<16>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
-                          causal, q_offset, scale, cap, s);
+    return launch_f32<16>(q, k, v, out, (float*)lse, b, sq, sk, seq_k, h,
+                          hkv, d, dv, causal, q_offset, scale, cap, s);
   if (d <= 32)
-    return launch_f32<32>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
-                          causal, q_offset, scale, cap, s);
+    return launch_f32<32>(q, k, v, out, (float*)lse, b, sq, sk, seq_k, h,
+                          hkv, d, dv, causal, q_offset, scale, cap, s);
   if (d <= 64)
-    return launch_f32<64>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
-                          causal, q_offset, scale, cap, s);
-  return launch_f32<128>(q, k, v, out, b, sq, sk, seq_k, h, hkv, d, dv,
-                         causal, q_offset, scale, cap, s);
+    return launch_f32<64>(q, k, v, out, (float*)lse, b, sq, sk, seq_k, h,
+                          hkv, d, dv, causal, q_offset, scale, cap, s);
+  return launch_f32<128>(q, k, v, out, (float*)lse, b, sq, sk, seq_k, h,
+                         hkv, d, dv, causal, q_offset, scale, cap, s);
 }
 
 // bfloat16 on the tensor cores: (d, dv) in {(64, 64), (80, 80), (128, 128),
 // (192, 128)}; q, k, v 16-byte aligned.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int b, int sq,
-                                    int sk, int seq_k, int h, int hkv, int d,
-                                    int dv, int causal, int q_offset,
-                                    float scale, float cap, void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int b, int sq, int sk, int seq_k, int h,
+                                    int hkv, int d, int dv, int causal,
+                                    int q_offset, float scale, float cap,
+                                    void* stream) {
   if (hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(D, DV)                                                      \
   if (d == D && dv == DV)                                                   \
-    return launch_wgmma<D, DV>(q, k, v, out, b, sq, sk, seq_k, h, hkv,      \
-                               causal, q_offset, scale, cap, s);
+    return launch_wgmma<D, DV>(q, k, v, out, (float*)lse, b, sq, sk, seq_k,  \
+                               h, hkv, causal, q_offset, scale, cap, s);
   FA_CASE(64, 64) FA_CASE(80, 80) FA_CASE(128, 128) FA_CASE(192, 128)
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;

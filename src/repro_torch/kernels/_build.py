@@ -34,8 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("uct_select", "search_wave", "flash_attention",
-           "decode_attention", "rwkv6_scan", "ssm_scan", "rwkv6_chunk",
-           "ssm_chunk")
+           "flash_attention_bwd", "decode_attention", "rwkv6_scan",
+           "ssm_scan", "rwkv6_chunk", "ssm_chunk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 EXACT_FMA = ("uct_select", "search_wave", "rwkv6_scan", "ssm_scan")
@@ -170,6 +170,18 @@ def resolve_impl(impl, t: torch.Tensor) -> str:
         raise ValueError("the CUDA kernel needs CUDA tensors, got "
                          f"{t.device}")
     return impl
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that has
+    no backward: its ``ctypes`` launch writes into a fresh tensor with no
+    ``grad_fn``, so the gradient would be cut without a word."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def packed(t: torch.Tensor, k: int) -> bool:

@@ -121,6 +121,7 @@ def decode_attention(q, k, v, valid_len, *, impl=None):
     ``[B, 1, H, D]`` in q's dtype (zeros where ``valid_len`` is 0)."""
     if _build.resolve_impl(impl, q) == "ref":
         return R.decode_attention_ref(q, k, v, valid_len)
+    _build.refuse_grad("decode_attention", q, k, v)
     d = q.shape[-1]
     pad = -d % (16 // q.element_size())
     if pad:      # rows of 16-byte multiples: zero columns add to no score

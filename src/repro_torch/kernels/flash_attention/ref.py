@@ -71,3 +71,129 @@ def rounded_p_limit(q, k, v, *, atol: float, **kw):
     want = flash_attention_ref(qf, kf, vf, **kw)
     m = flash_attention_ref(qf, kf, vf.abs(), **kw)
     return want, atol + BF16_U * want.abs() + BF16_U * m
+
+
+# ---------------------------------------------------------------------------
+# training: the blocked forward with its logsumexp and the flash backward,
+# plain copies of ``repro.models.layers._blocked_fwd`` / ``_core_bwd``
+# ---------------------------------------------------------------------------
+def _fa_bias(qi, ki, blk_q, blk_k, sk, q_offset, causal, device):
+    """Additive mask bias ``[blk_q, blk_k]`` float32: 0 keep, -1e30 drop
+    (keys at or past ``sk``, and above the causal diagonal)."""
+    kpos = ki * blk_k + torch.arange(blk_k, device=device)
+    keep = (kpos[None, :] < sk).expand(blk_q, blk_k)
+    if causal:
+        qpos = qi * blk_q + torch.arange(blk_q, device=device) + q_offset
+        keep = keep & (qpos[:, None] >= kpos[None, :])
+    return torch.where(keep, 0.0, -1e30).float()
+
+
+def _fa_scores(qb, kb, scale, cap):
+    """``[B, blk_q, Hkv, g, D]`` x ``[B, blk_k, Hkv, D]`` -> scores
+    ``[B, Hkv, g, blk_q, blk_k]`` float32 (exact products of the inputs,
+    float32 sums), soft-capped."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), kb.float()) * scale
+    if cap > 0.0:
+        s = cap * torch.tanh(s / cap)
+    return s
+
+
+def _pad_rows(x, n):
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n)) if n else x
+
+
+def blocked_fwd_ref(q, k, v, *, causal: bool, q_offset: int = 0,
+                    blk_q: int, blk_k: int, logits_soft_cap: float = 0.0,
+                    seq_k_valid=None):
+    """``_blocked_fwd``: (out ``[B, Sq, H, Dv]`` in q's dtype, lse ``[B, H,
+    Sq]`` float32, the natural-log logsumexp of each row's scaled,
+    soft-capped, masked scores).  Double-blocked online softmax with the
+    additive -1e30 mask, p cast to v's dtype before PV; keys at or past
+    ``seq_k_valid`` (default Sk) are padding."""
+    b, sq, h, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    seq_k = sk if seq_k_valid is None else int(seq_k_valid)
+    scale = 1.0 / d ** 0.5
+    pad_q, pad_k = (-sq) % blk_q, (-sk) % blk_k
+    qp = _pad_rows(q, pad_q).reshape(b, -1, blk_q, hkv, g, d)
+    kp = _pad_rows(k, pad_k).reshape(b, -1, blk_k, hkv, d)
+    vp = _pad_rows(v, pad_k).reshape(b, -1, blk_k, hkv, dv)
+    nq, nk = qp.shape[1], kp.shape[1]
+    outs, lses = [], []
+    for qi in range(nq):
+        qb = qp[:, qi]
+        m = torch.full((b, hkv, g, blk_q), -1e30, device=q.device)
+        l = torch.zeros((b, hkv, g, blk_q), device=q.device)
+        acc = torch.zeros((b, hkv, g, blk_q, dv), device=q.device)
+        for ki in range(nk):
+            kb, vb = kp[:, ki], vp[:, ki]
+            s = _fa_scores(qb, kb, scale, logits_soft_cap) + _fa_bias(
+                qi, ki, blk_q, blk_k, seq_k, q_offset, causal, q.device)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vb.float())
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None])
+                    .permute(0, 3, 1, 2, 4).to(q.dtype))
+        lses.append(m + torch.log(l.clamp_min(1e-30)))
+    out = torch.cat(outs, 1).reshape(b, sq + pad_q, h, dv)[:, :sq]
+    lse = torch.cat(lses, -1).reshape(b, h, sq + pad_q)[..., :sq]
+    return out.contiguous(), lse.contiguous()
+
+
+def blocked_bwd_ref(q, k, v, out, lse, dout, *, causal: bool,
+                    q_offset: int = 0, blk_q: int, blk_k: int,
+                    logits_soft_cap: float = 0.0, seq_k_valid=None):
+    """``_core_bwd``: (dq, dk, dv) in the dtypes of q, k, v from the saved
+    (q, k, v, out, lse ``[B, H, Sq]``) and ``dout``; p recomputed blockwise
+    as ``exp(s - lse)``, ``ds = p (dp - delta)`` with ``delta = sum(dout *
+    out)``, the soft cap's derivative ``1 - (s / cap)^2`` and the re-mask
+    ``ds * (bias > -1)``; dk / dv summed in float32 over the query blocks
+    and the group's query heads."""
+    b, sq, h, d = q.shape
+    sk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    seq_k = sk if seq_k_valid is None else int(seq_k_valid)
+    cap = logits_soft_cap
+    scale = 1.0 / d ** 0.5
+    pad_q, pad_k = (-sq) % blk_q, (-sk) % blk_k
+    qp = _pad_rows(q, pad_q).reshape(b, -1, blk_q, hkv, g, d)
+    dop = _pad_rows(dout, pad_q).reshape(b, -1, blk_q, hkv, g, dv_)
+    op = _pad_rows(out, pad_q)
+    kp = _pad_rows(k, pad_k).reshape(b, -1, blk_k, hkv, d)
+    vp = _pad_rows(v, pad_k).reshape(b, -1, blk_k, hkv, dv_)
+    nq, nk = qp.shape[1], kp.shape[1]
+    delta = (_pad_rows(dout, pad_q).float() * op.float()).sum(-1)
+    delta = delta.reshape(b, nq, blk_q, hkv, g).permute(1, 0, 3, 4, 2)
+    lse_b = torch.nn.functional.pad(lse, (0, pad_q)).reshape(
+        b, hkv, g, nq, blk_q).permute(3, 0, 1, 2, 4)
+    dk = torch.zeros((b, nk, blk_k, hkv, d), device=q.device)
+    dv = torch.zeros((b, nk, blk_k, hkv, dv_), device=q.device)
+    dqs = []
+    for qi in range(nq):
+        qb, dob = qp[:, qi], dop[:, qi]
+        dq_b = torch.zeros((b, blk_q, hkv, g, d), device=q.device)
+        for ki in range(nk):
+            kb, vb = kp[:, ki], vp[:, ki]
+            bias = _fa_bias(qi, ki, blk_q, blk_k, seq_k, q_offset, causal,
+                            q.device)
+            s = _fa_scores(qb, kb, scale, cap) + bias
+            p = torch.exp(s - lse_b[qi][..., None])
+            dv[:, ki] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob.float())
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob.float(), vb.float())
+            ds = p * (dp - delta[qi][..., None])
+            if cap > 0.0:
+                ds = ds * (1.0 - torch.square((s - bias) / cap))
+            ds = ds * (bias > -1.0)
+            dq_b = dq_b + torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                       kb.float()) * scale
+            dk[:, ki] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                      qb.float()) * scale
+        dqs.append(dq_b)
+    dq = torch.stack(dqs, 1).reshape(b, sq + pad_q, h, d)[:, :sq]
+    return (dq.to(q.dtype), dk.reshape(b, -1, hkv, d)[:, :sk].to(k.dtype),
+            dv.reshape(b, -1, hkv, dv_)[:, :sk].to(v.dtype))

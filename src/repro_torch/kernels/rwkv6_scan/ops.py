@@ -115,6 +115,7 @@ def wkv6(r, k, v, w, u, state, *, impl=None):
     float32)."""
     if _build.resolve_impl(impl, r) == "ref":
         return R.wkv6_ref(r, k, v, w, u, state)
+    _build.refuse_grad("wkv6", r, k, v, w, u, state)
     r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
     w = w.float().contiguous()
     u = u.to(r.dtype).contiguous()

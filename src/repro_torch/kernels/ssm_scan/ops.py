@@ -138,6 +138,7 @@ def ssd(x, dt, A, Bm, Cm, D, state, *, impl=None):
     float32)."""
     if _build.resolve_impl(impl, x) == "ref":
         return R.ssd_ref(x, dt, A, Bm, Cm, D, state)
+    _build.refuse_grad("ssd", x, dt, A, Bm, Cm, D, state)
     x = x if _build.packed(x, 2) else x.contiguous()
     Bm, Cm = ((z if _build.packed(z, 1) else z.contiguous()).to(x.dtype)
               for z in (Bm, Cm))

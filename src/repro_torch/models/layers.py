@@ -1,8 +1,9 @@
 """Shared neural-net building blocks (plain functions over parameter dicts).
 
-The PyTorch counterpart of ``repro.models.layers``, for the dense
-forward; the training pieces (``blocked_attention``'s custom VJP,
-``chunked_softmax_xent``) are not ported.
+The PyTorch counterpart of ``repro.models.layers``: the dense forward and
+its training pieces, ``blocked_attention`` (a ``torch.autograd.Function``:
+the flash kernel with its logsumexp forward, the flash backward kernel
+backward; the JAX package's custom VJP) and ``chunked_softmax_xent``.
 
 Conventions: activations are ``cfg.jdtype``, norms and softmax accumulate
 in float32; attention layouts are ``[B, S, H, D]``; per-layer parameters
@@ -125,14 +126,59 @@ def sdpa(q, k, v, *, causal: bool, q_offset=0, bias=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+class _BlockedAttention(torch.autograd.Function):
+    """``_blocked_attention_core`` with its custom VJP: the forward keeps
+    (q, k, v, out, lse), the backward recomputes p blockwise from them (no
+    ``[Sq, Sk]`` matrix is stored).  CUDA tensors run the flash kernel
+    with its logsumexp and the flash backward kernels; CPU tensors the
+    plain copies of ``_blocked_fwd`` / ``_core_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, blk_q, blk_k, cap):
+        from repro_torch.kernels.flash_attention import ops as fa
+        kw = dict(causal=causal, q_offset=q_offset, logits_soft_cap=cap,
+                  blk_q=blk_q, blk_k=blk_k)
+        out, lse = fa.flash_attention_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention import ops as fa
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocked_attention(q, k, v, *, causal: bool, q_offset=0, blk_q=256,
+                      blk_k=1024, logits_soft_cap: float = 0.0):
+    """Memory-efficient attention with a flash backward: q ``[B, Sq, H,
+    D]``, k ``[B, Sk, Hkv, D]``, v ``[B, Sk, Hkv, Dv]`` -> ``[B, Sq, H,
+    Dv]``; GQA grouped, no kv-head repetition.  ``blk_q`` / ``blk_k`` are
+    the plain version's blocks (the kernels tile for the card)."""
+    return _BlockedAttention.apply(q, k, v, causal, int(q_offset),
+                                   int(blk_q), int(blk_k),
+                                   float(logits_soft_cap))
+
+
 def attention(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
               kv_valid_len=None, logits_soft_cap: float = 0.0):
-    """Dispatch: the flash kernel (K4) for a multi-row query without a
-    valid-length mask, the flash-decode kernel (K3) for one query row
-    against a cache with one, ``sdpa`` otherwise.  Each kernel wrapper
-    runs its CUDA kernel on CUDA tensors and its plain version on the CPU,
-    whatever ``cfg.use_pallas`` / ``cfg.attn_impl`` say."""
+    """Dispatch: for a multi-row query without a valid-length mask,
+    ``blocked_attention`` when grad mode is on and q, k or v requires grad
+    (training), the flash kernel (K4) otherwise; the flash-decode kernel
+    (K3) for one query row against a cache with one; ``sdpa`` otherwise.
+    Each kernel wrapper runs its CUDA kernel on CUDA tensors and its plain
+    version on the CPU, whatever ``cfg.use_pallas`` / ``cfg.attn_impl``
+    say."""
     if kv_valid_len is None and q.shape[1] > 1:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return blocked_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset, blk_q=cfg.attn_blk_q,
+                                     blk_k=cfg.attn_blk_k,
+                                     logits_soft_cap=logits_soft_cap)
         from repro_torch.kernels.flash_attention import ops as fa
         return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                   logits_soft_cap=logits_soft_cap)
@@ -201,7 +247,8 @@ def apply_mlp(cfg: ModelConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
-# embedding and head
+# embedding, head and chunked cross-entropy (never the whole [B, S, V]
+# logits in float32 at once)
 # ---------------------------------------------------------------------------
 def init_embed(cfg: ModelConfig, gen):
     p = {"tok": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.jdtype)}
@@ -219,3 +266,40 @@ def lm_head(cfg: ModelConfig, p, x):
     """Logits in x's dtype (bf16 on the full-size path; callers cast)."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (x @ w) * cfg.logit_scale
+
+
+def _xent_chunk(xc, yc, mc, w, logit_scale: float):
+    """One chunk's (sum of masked token losses, sum of the mask)."""
+    logits = (xc @ w).float() * logit_scale             # [B, c, V]
+    lse = torch.logsumexp(logits, -1)
+    tgt = logits.gather(-1, yc.long()[..., None])[..., 0]
+    return ((lse - tgt) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(cfg: ModelConfig, p, x, labels, mask=None):
+    """Mean next-token cross-entropy over ``x [B, S, D]`` (pre-head
+    hidden), ``labels [B, S]``, ``mask [B, S]`` {0, 1}, in sequence chunks
+    of ``cfg.ce_chunk`` (and a remainder chunk).  Under grad each chunk
+    runs in ``torch.utils.checkpoint``, so its ``[B, chunk, V]`` float32
+    logits are recomputed in the backward and never saved across chunks
+    (the JAX package's ``jax.checkpoint(nothing_saveable)``)."""
+    from torch.utils.checkpoint import checkpoint
+    b, s, _ = x.shape
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    chunk = min(cfg.ce_chunk, s)
+    n = s // chunk
+    mask = torch.ones((b, s), device=x.device) if mask is None \
+        else torch.as_tensor(mask, device=x.device).float()
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if s > n * chunk:
+        bounds.append((n * chunk, s))
+    remat = torch.is_grad_enabled()
+    for lo, hi in bounds:
+        args = (x[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi], w,
+                cfg.logit_scale)
+        l, c = checkpoint(_xent_chunk, *args, use_reentrant=False) \
+            if remat else _xent_chunk(*args)
+        tot, cnt = tot + l, cnt + c
+    return tot / cnt.clamp_min(1.0)

@@ -7,6 +7,11 @@ Parameters are a dict of tensors with the JAX package's keys; per-layer
 weights are stacked on a leading ``[L]`` axis and a Python loop over the
 layers takes the place of ``lax.scan``.
 
+Training: ``loss_fn`` (``hidden_states`` + ``layers.chunked_softmax_xent``)
+under autograd, each block rematerialised when ``cfg.remat``; attention
+then runs ``layers.blocked_attention`` (the flash kernel with its
+logsumexp, and the flash backward kernel).
+
 Attention: the prompt prefill runs the flash kernel (K4) through
 ``layers.attention``; every incremental token runs the flash-decode kernel
 (K3) on one layer's slice of the cache, read in place.  Two decode
@@ -57,6 +62,19 @@ def layer_params(params, i: int):
     return pick(params["layers"])
 
 
+def unstack_layers(params, n: int) -> list:
+    """The ``n`` layers' parameter dicts of ``params["layers"]``, each
+    stacked leaf split once by ``unbind(0)``: under autograd the backward
+    then stacks each leaf's gradient once, where indexing layer by layer
+    would add a full-size zero gradient per layer and leaf."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return t.unbind(0)
+    return split(params["layers"])
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -72,19 +90,38 @@ def _block(cfg: ModelConfig, p, x, cos, sin):
     return x + L.apply_mlp(cfg, p["mlp"], h) * cfg.residual_scale, k, v
 
 
+def _block_out(cfg: ModelConfig, p, x, cos, sin):
+    return _block(cfg, p, x, cos, sin)[0]
+
+
 def hidden_states(cfg: ModelConfig, params, tokens=None, inputs_embeds=None,
                   positions=None):
     """Full-sequence forward of ``tokens [B, S]`` or of ``inputs_embeds
     [B, S, d]`` (the VLM's image-then-text sequence) at ``positions``
-    (default ``0 .. S-1``) -> final hidden ``[B, S, d]``."""
+    (default ``0 .. S-1``) -> final hidden ``[B, S, d]``.  Under grad mode
+    with ``cfg.remat`` each block runs in ``torch.utils.checkpoint``
+    (non-reentrant): only its input is kept, and the backward recomputes
+    the block (the JAX package's ``jax.checkpoint(nothing_saveable)``)."""
+    from torch.utils.checkpoint import checkpoint
     x = inputs_embeds if inputs_embeds is not None \
         else L.embed_tokens(cfg, params["embed"], tokens)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = L.rope_freqs(cfg, positions)
-    for i in range(cfg.n_layers):
-        x, _, _ = _block(cfg, layer_params(params, i), x, cos, sin)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in unstack_layers(params, cfg.n_layers):
+        x = checkpoint(_block_out, cfg, p, x, cos, sin, use_reentrant=False) \
+            if remat else _block_out(cfg, p, x, cos, sin)
     return L.apply_norm(cfg, params["final_norm"], x)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``, each ``[B, S]``) -> ``(loss, {"loss": loss})``."""
+    x = hidden_states(cfg, params, tokens=batch["tokens"])
+    loss = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                  batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens):

@@ -64,18 +64,27 @@ def jax_step(params, opt, batch):
 
 
 def loops(tmp_path, transient=False, **ft_kw):
-    """``(port factory, JAX factory)`` of loops over the toy model."""
+    """``(port factory, JAX factory)`` of loops over the toy model.  Each
+    factory keeps the loops it built (``factory.built``) and, before it
+    builds the next, waits for the last one's checkpoint save: a loop that
+    "crashed" may have left a save in flight on its thread (step 10, when
+    the fault comes at step 12), and the rebuilt loop must find it
+    committed, not restore an older step."""
     def make(mod, step, init, sub):
-        builds = {"n": 0}
+        built = []
 
         def factory():
-            builds["n"] += 1
+            if built:
+                built[-1].ckpt.wait()
             kw = dict(ft_kw)
-            if transient and builds["n"] > 1:
+            if transient and built:
                 kw.pop("fail_at_step", None)   # a fault that does not recur
             ft = mod.FTConfig(ckpt_dir=str(tmp_path / sub), ckpt_every=5,
                               **kw)
-            return mod.TrainerLoop(step, *init(), batches, ft)
+            loop = mod.TrainerLoop(step, *init(), batches, ft)
+            built.append(loop)
+            return loop
+        factory.built = built
         return factory
 
     port = make(tft, torch_step, lambda: ({"w": torch.zeros(DIM)},
@@ -91,6 +100,10 @@ def test_ft_restart_resumes_same_stream(tmp_path):
     jout = jft.run_with_restarts(jax_, n_steps=20, max_restarts=2)
     assert out["step"] == jout["step"] == 20
     assert out["restarts"] == jout["restarts"] == 1
+    # both rebuilt loops restored the save of step 10 and ran 10 steps
+    for f in (port, jax_):
+        assert len(f.built) == 2
+        assert f.built[1].step - len(f.built[1].history) == 10
     np.testing.assert_allclose(out["losses"], jout["losses"], **LOSS_TOL)
     ref, _ = loops(tmp_path / "ref")
     full = ref().run(20)
