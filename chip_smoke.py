@@ -13,9 +13,12 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               (with ``--before DIR``, a checkout of an earlier commit,
               also its K4, K3 and K2a sources by its own ``_build``; its
               wrappers are timed beside the port's); SASS checks: HGMMA
-              and UTMALDG in the bf16 K4, 16-byte LDGSTS and no HMMA in the
-              float32 K4, 16-byte LDGSTS in K3, HMMA (tensor-core
-              mma.sync) in the chunked scans, REDUX in K2a
+              and UTMALDG in the bf16 K4 and the bf16 flash backward
+              (kernel B), 16-byte LDGSTS and no HMMA in the float32 K4,
+              no HMMA in the float32 kernel B, 16-byte LDGSTS in K3, HMMA
+              (tensor-core mma.sync) in the chunked scans, REDUX in K2a;
+              a ``ptxas`` line with the registers and spills of every
+              instantiation of kernel B
   3. kernels  K2a against its plain version on synthetic boards (A 1-130,
               finished rows, sentinel ties, int32 and float32 counts); the
               search kernels (K1, K2) against their plain PyTorch
@@ -132,9 +135,12 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               the flash backward (kernel B, ``flash_attention_bwd``:
               dq / dk / dv within TRAIN_GRAD_TOL normwise of the plain
               ``blocked_bwd_ref``) at smollm-135m's and stablelm-3b's
-              training shapes in bf16 and a float32 shape with every
-              knob, planted faults above both limits, timed at smollm's
-              beside SDPA's forward and backward; ``train-small``: the
+              training shapes in bf16, the bf16 tails and knobs (Sq, Sk
+              not multiples of 64, q_offset, seq_k_valid, soft caps,
+              non-causal, D = 128) and a float32 shape with every knob,
+              planted faults above both limits, two launches of B
+              bit-equal, timed at smollm's beside SDPA's forward and
+              backward; ``train-small``: the
               four dense smoke configs' ``make_train_step`` (and one
               grad-accumulation step), card == CPU within
               TRAIN_SMALL_TOL; ``train-full``: smollm-135m at its
@@ -180,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -407,7 +414,7 @@ def phase_build(before=None):
         if BEFORE["_thread"].err:
             fail(f"the parent's build failed: {BEFORE['_thread'].err[0]}")
     secs = time.perf_counter() - t0
-    regs = []
+    regs, bwd = [], {}
     for name, log in logs.items():
         fn = ""
         for line in log.splitlines():
@@ -415,32 +422,67 @@ def phase_build(before=None):
                 fn = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
                 regs.append(f"{name}: {fn[:100]}: {line.strip()}")
+                if name == "flash_attention_bwd":
+                    got = re.search(r"Used (\d+) registers", line) or \
+                        re.search(r"(\d+) bytes spill stores", line)
+                    key = "regs" if "registers" in line else "spill"
+                    bwd.setdefault(kernel_label(fn), {})[key] = \
+                        int(got.group(1))
     say(f"build {len(logs)} sources in {secs:.2f} s (parallel nvcc)"
         + (f" and the parent's {list(BEFORE_SOURCES)} from {before}"
            if before else ""))
+    say("ptxas kernel B (flash_attention_bwd.cu), registers / spill-store "
+        "bytes: " + ", ".join(f"{k} {v.get('regs')}/{v.get('spill')}"
+                              for k, v in sorted(bwd.items())))
     return secs, regs, sass_check(_build.BUILD_DIR)
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<args>`` of a kernel's mangled name from the anonymous
+    namespace of a csrc source (``_ZN<n>_GLOBAL__N__<id>_cu_<8 hex><len>
+    <name>I<args>E...``): int args as numbers, float / bf16 by name."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled[:60]
+    at = m.end()
+    name = mangled[at:at + int(m.group(1))]
+    rest, args = mangled[at + int(m.group(1)):], []
+    if rest.startswith("I"):
+        for tok in re.finditer(r"Li(\d+)E|f|13__nv_bfloat16|E", rest[1:]):
+            if tok.group(0) == "E":
+                break
+            args.append(tok.group(1) or ("float" if tok.group(0) == "f"
+                                         else "bf16"))
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 SASS_NEEDS = (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
               ("flash_attention", "fa_wgmma_kernel", "UTMALDG"),
               ("flash_attention", "fa_kernel", "LDGSTS"),
+              ("flash_attention_bwd", "fa_bwd_dkdv_wgmma_kernel", "HGMMA"),
+              ("flash_attention_bwd", "fa_bwd_dkdv_wgmma_kernel", "UTMALDG"),
+              ("flash_attention_bwd", "fa_bwd_dq_wgmma_kernel", "HGMMA"),
+              ("flash_attention_bwd", "fa_bwd_dq_wgmma_kernel", "UTMALDG"),
               ("decode_attention", "da_kernel", "LDGSTS"),
               ("ssm_chunk", "ssd_chunk_kernel", "HMMA"),
               ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"),
               ("uct_select", "uct_tiles_kernel", "REDUX"))
-# instructions a kernel must not hold: the float32 K4 stays IEEE float32
-# FFMA, off the tensor cores
-SASS_FORBIDS = (("flash_attention", "fa_kernel", "HMMA"),)
+# instructions a kernel must not hold: the float32 K4 and kernel B stay
+# IEEE float32 FFMA, off the tensor cores
+SASS_FORBIDS = (("flash_attention", "fa_kernel", "HMMA"),
+                ("flash_attention_bwd", "fa_bwd_dkdv_kernel", "HMMA"),
+                ("flash_attention_bwd", "fa_bwd_dq_kernel", "HMMA"))
 
 
 def sass_check(build_dir) -> dict:
     """Count, in each instantiation of a kernel of the built libraries
     (``cuobjdump -sass``), the instructions ``SASS_NEEDS`` asks of it:
-    HGMMA (wgmma) and UTMALDG (TMA loads) in ``fa_wgmma_kernel``, 16-byte
+    HGMMA (wgmma) and UTMALDG (TMA loads) in ``fa_wgmma_kernel`` and the
+    bf16 backward's ``fa_bwd_*_wgmma_kernel``, 16-byte
     LDGSTS (cp.async) in ``fa_kernel`` and ``da_kernel``, HMMA (mma.sync)
     in the chunked scans, REDUX (the first-max) in ``uct_tiles_kernel``;
     fail where one is missing, or where one of ``SASS_FORBIDS`` (HMMA in
-    ``fa_kernel``) is present."""
+    ``fa_kernel`` and the float32 backward) is present."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -992,7 +1034,8 @@ PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
                 "sw_b_kernel", "uct_tiles_kernel", "uct_running_kernel",
                 "::wkv6_kernel<", "::ssd_kernel<", "::wkv6_chunk_kernel(",
                 "::ssd_chunk_kernel(", "::fa_bwd_delta_kernel<",
-                "::fa_bwd_dkdv_kernel<", "::fa_bwd_dq_kernel<")
+                "::fa_bwd_dkdv_kernel<", "::fa_bwd_dq_kernel<",
+                "::fa_bwd_dkdv_wgmma_kernel<", "::fa_bwd_dq_wgmma_kernel<")
 
 
 def profile_one(what: str, run):
@@ -3886,11 +3929,18 @@ TRAIN_SMALL = dict(batch=2, seq=40, steps=3, lr=1e-3)
 TRAIN_FULL = dict(batch=8, seq=2048, steps=12, ckpt_every=5, fail_at=7,
                   lr=3e-4, timed=5)
 # the train-kernels shapes: smollm-135m's and stablelm-3b's training
-# attention in bf16, and the float32 knobs (Sq, Sk not multiples of the 64
-# tile, q_offset, seq_k_valid < Sk, a soft cap) at the smoke head dim
+# attention in bf16; the bf16 kernels' tails and knobs (Sq, Sk not
+# multiples of the 64 tile, q_offset, seq_k_valid < Sk, a soft cap, GQA,
+# non-causal) and grok's soft cap at its head dim, 128; the float32 knobs
+# at the smoke head dim
 TRAIN_KERNEL_SHAPES = (
     ("smollm", 8, 2048, 2048, 9, 3, 64, "bf16", dict(causal=True)),
     ("stablelm", 2, 1024, 1024, 32, 32, 80, "bf16", dict(causal=True)),
+    ("bf16-knobs", 2, 77, 77, 4, 2, 64, "bf16",
+     dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)),
+    ("bf16-noncausal", 2, 77, 90, 4, 2, 64, "bf16", dict(causal=False)),
+    ("grok-cap", 1, 512, 512, 8, 2, 128, "bf16",
+     dict(causal=True, logits_soft_cap=30.0)),
     ("f32-knobs", 2, 77, 77, 4, 2, 16, "f32",
      dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)))
 # kernel A's lse against the plain version in float32 on the same inputs,
@@ -3951,7 +4001,8 @@ def normwise(got, want) -> float:
 def train_kernel_case(dev, spec):
     """Kernels A and B at one shape against their plain versions: A's
     output equal to the serving kernel's bit for bit and its lse within
-    LSE_TOL (a planted fault, the diagonal one position late, above it); B
+    LSE_TOL (a planted fault, the diagonal one position late or, without
+    causal, the last valid key dropped, above it); B
     within TRAIN_GRAD_TOL normwise (a planted fault, one kv head's dk
     zeroed, far above it).  Then the times of A, B and their plain
     versions, in turns with SDPA's forward / backward where SDPA computes
@@ -3972,8 +4023,11 @@ def train_kernel_case(dev, spec):
     blk = dict(blk_q=min(256, sq), blk_k=min(1024, sk))
     out_ref, lse_ref = R.blocked_fwd_ref(*f32, **blk, **kw)
     lse_err = max_diff(lse, lse_ref)
-    _, lse_bad = FA.flash_attention_lse(
-        q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) + 1))
+    # planted: the diagonal one position late, or without causal the last
+    # valid key dropped
+    bad_kw = (dict(kw, q_offset=kw.get("q_offset", 0) + 1) if kw["causal"]
+              else dict(kw, seq_k_valid=kw.get("seq_k_valid", sk) - 1))
+    _, lse_bad = FA.flash_attention_lse(q, k, v, **bad_kw)
     planted_lse = max_diff(lse_bad, lse_ref)
     if lse_err > LSE_TOL or planted_lse <= LSE_TOL:
         fail(f"train-kernels {name}: kernel A's lse differs from the plain "
@@ -3992,6 +4046,10 @@ def train_kernel_case(dev, spec):
         fail(f"train-kernels {name}: kernel B's gradients differ from the "
              f"plain version normwise by {errs} (limit {tol}; planted fault "
              f"{planted})")
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        fail(f"train-kernels {name}: two launches of kernel B on the same "
+             "inputs differ")
     res = {"shape": [b, sq, sk, h, hkv, d], "dtype": dts, "knobs": kw,
            "lse_err": lse_err, "lse_planted": planted_lse,
            "out_abs_err": max_diff(out, out_ref),
@@ -4051,7 +4109,8 @@ def phase_train_kernels(dev):
         f"{n} {c['dtype']} {c['shape']}: lse err {c['lse_err']:.2e} "
         f"(planted {c['lse_planted']:.2e}), grads normwise "
         + ",".join(f"{g}={e:.2e}" for g, e in c["grad_normwise"].items())
-        + f" (planted {c['grad_planted']:.2e}); " + ", ".join(
+        + f" (planted {c['grad_planted']:.2e}), B twice bit-equal; "
+        + ", ".join(
             f"{x} ms={c[x]['ms']:.4f},plain_ms={c[x]['plain_ms']:.4f},"
             f"sdpa_ms={c[x]['sdpa_ms']},bound_ms={c[x]['bound'][0]:.5f} "
             f"({c[x]['bound'][1]})" for x in ("a", "b"))

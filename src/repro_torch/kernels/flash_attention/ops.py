@@ -18,9 +18,12 @@ Training (``flash_attention_lse`` / ``flash_attention_bwd``, behind
 ``models.layers.blocked_attention``): the same kernels also write each
 row's logsumexp (``[B, H, Sq]`` float32, natural log), and the backward
 kernels of ``csrc/flash_attention_bwd.cu`` (the counterpart of the JAX
-package's custom VJP ``_core_bwd``, float32 FFMA for both dtypes, no
-atomics) give dq, dk, dv from it.  Their plain versions are ``ref.py``'s
-copies of ``_blocked_fwd`` / ``_core_bwd``.  ``flash_attention`` has no
+package's custom VJP ``_core_bwd``, no atomics) give dq, dk, dv from it:
+in bfloat16 on the tensor cores (wgmma fed by TMA, P and dS rounded to
+bf16 before the products; (q/k, v) head dims in ``BWD_BF16_HEAD_DIMS``),
+in float32 as IEEE float32 FFMA (v head dim <= q/k head dim <= 128).
+Their plain versions are ``ref.py``'s copies of ``_blocked_fwd`` /
+``_core_bwd``.  ``flash_attention`` has no
 backward: under grad mode with an input that requires grad, its CUDA path
 raises rather than return a result cut from the graph.
 
@@ -51,6 +54,9 @@ MAX_D = 128
 # (q / k head dim, v head dim): the dense, zamba2, whisper and internvl2
 # heads, and deepseek-v2's MLA (qk_nope 128 + qk_rope 64, v 128)
 BF16_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
+# the bf16 backward's: the forward's less MLA's (192, 128), whose D is past
+# the backward's 128
+BWD_BF16_HEAD_DIMS = ((64, 64), (80, 80), (128, 128))
 # dtype -> C entry point
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -169,9 +175,14 @@ def launch_bwd(q, k, v, out, lse, dout, dq, dk, dv, *, causal, q_offset,
     if h % hkv:
         raise ValueError(f"flash_attention_bwd takes H a multiple of Hkv, "
                          f"got H={h}, Hkv={hkv}")
-    if not 1 <= dvd <= d <= MAX_D:
-        raise ValueError(f"flash_attention_bwd takes v head dim <= q/k head "
-                         f"dim <= {MAX_D}, got ({d}, {dvd})")
+    if q.dtype == torch.bfloat16 and (d, dvd) not in BWD_BF16_HEAD_DIMS:
+        raise ValueError(f"the bf16 flash_attention_bwd kernels take (q/k, "
+                         f"v) head dims {BWD_BF16_HEAD_DIMS}, got ({d}, "
+                         f"{dvd})")
+    if q.dtype == torch.float32 and not 1 <= dvd <= d <= MAX_D:
+        raise ValueError(f"the float32 flash_attention_bwd kernels take v "
+                         f"head dim <= q/k head dim <= {MAX_D}, got ({d}, "
+                         f"{dvd})")
     for t, name, shape in ((q, "q", (b, sq, h, d)), (k, "k", (b, sk, hkv, d)),
                            (v, "v", (b, sk, hkv, dvd)),
                            (out, "out", (b, sq, h, dvd)),
@@ -181,6 +192,10 @@ def launch_bwd(q, k, v, out, lse, dout, dq, dk, dv, *, causal, q_offset,
                            (dv, "dv", (b, sk, hkv, dvd))):
         _build.check_operand(t, name, q.dtype, shape, dev)
     _build.check_operand(lse, "lse", torch.float32, (b, h, sq), dev)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, dout)):
+        raise ValueError("the bf16 flash_attention_bwd kernels read q, k, "
+                         "v and dout by TMA: 16-byte aligned operands")
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     entry = _BWD_ENTRY[q.dtype]
     fn = _build.bind("flash_attention_bwd", entry,

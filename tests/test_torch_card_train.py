@@ -16,6 +16,8 @@ tests/test_torch_card_train.py``.
   sums' order), 2^-7 in bf16 (the kernel rounds each gradient to bf16
   once: half a bf16 ulp of the largest element, doubled for the float32
   sums); a planted fault (one head's dk zeroed) reads far above that;
+  the bf16 kernels (wgmma) at every head dim they take, with the tails and
+  knobs; two launches on the same inputs bit-equal (no atomics);
 * the autograd path: the smoke model's loss backed through ``attention``
   on the card gives every attention weight a gradient, equal to the plain
   path's on the CPU within 1e-5 normwise per leaf (float32).
@@ -35,6 +37,13 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SHAPES = [   # b, sq, sk, h, hkv, d, dtype, knobs
     (8, 2048, 2048, 9, 3, 64, torch.bfloat16, dict(causal=True)),
     (2, 1024, 1024, 32, 32, 80, torch.bfloat16, dict(causal=True)),
+    # the bf16 kernels' tails and knobs: Sq, Sk not multiples of 64,
+    # q_offset, seq_k_valid < Sk, a soft cap, GQA; grok's cap and head dim
+    (2, 77, 77, 4, 2, 64, torch.bfloat16,
+     dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)),
+    (2, 77, 90, 4, 2, 64, torch.bfloat16, dict(causal=False)),
+    (1, 512, 512, 8, 2, 128, torch.bfloat16,
+     dict(causal=True, logits_soft_cap=30.0)),
     (2, 77, 77, 4, 2, 16, torch.float32,
      dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)),
     (2, 77, 90, 4, 2, 16, torch.float32, dict(causal=False)),
@@ -76,11 +85,14 @@ def test_kernels_a_and_b_match_plain(shape):
                                          blk_k=min(1024, sk), **kw)
         assert float((lse - lse_ref).abs().max()) <= LSE_TOL
         dq, dk, dv = tfa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = tfa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         want = tfr.blocked_bwd_ref(*f32, out.float(), lse, dout.float(),
                                    blk_q=min(256, sq), blk_k=min(1024, sk),
                                    **kw)
     torch.cuda.synchronize()
-    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+    for name, got, w, rep in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                 again):
+        assert torch.equal(got, rep), name      # no atomics
         assert got.dtype == dt
         err = normwise(got, w)
         assert err <= GRAD_TOL[dt], (name, err)
