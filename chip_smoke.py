@@ -186,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -466,6 +467,8 @@ SASS_NEEDS = (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
               ("decode_attention", "da_kernel", "LDGSTS"),
               ("ssm_chunk", "ssd_chunk_kernel", "HMMA"),
               ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"),
+              ("rwkv6_chunk_bwd", "wkv6_bwd_kernel", "HMMA"),
+              ("ssm_chunk_bwd", "ssd_bwd_kernel", "HMMA"),
               ("uct_select", "uct_tiles_kernel", "REDUX"))
 # instructions a kernel must not hold: the float32 K4 and kernel B stay
 # IEEE float32 FFMA, off the tensor cores
@@ -1035,11 +1038,14 @@ PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
                 "::wkv6_kernel<", "::ssd_kernel<", "::wkv6_chunk_kernel(",
                 "::ssd_chunk_kernel(", "::fa_bwd_delta_kernel<",
                 "::fa_bwd_dkdv_kernel<", "::fa_bwd_dq_kernel<",
-                "::fa_bwd_dkdv_wgmma_kernel<", "::fa_bwd_dq_wgmma_kernel<")
+                "::fa_bwd_dkdv_wgmma_kernel<", "::fa_bwd_dq_wgmma_kernel<",
+                "::wkv6_bwd_kernel<", "::ssd_bwd_kernel<",
+                "group_sum_kernel")
 
 
-def profile_one(what: str, run):
-    """Wall time of ``run()`` untraced (after a warm run), then one run
+def profile_one(what: str, run, warm: bool = True):
+    """Wall time of ``run()`` untraced (after a warm run unless ``warm`` is
+    False: the caller ran the same shapes earlier), then one run
     traced by torch.profiler (CUPTI).  Device busy time is the sum over
     the device's own events (kernels, copies, sets); an operator's self
     device time repeats its kernels' and is listed beside them, not summed
@@ -1047,7 +1053,8 @@ def profile_one(what: str, run):
     lines)``, or ``(None, [])`` when the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -1103,7 +1110,9 @@ def write_out(name: str, lines) -> None:
 def phase_profile(dev):
     """Where the time goes on the fused full-size P-game runs (table in
     ``chiprun_out/profile.txt``).  The lockstep runs are left out: tracing
-    their ~10^5 small launches takes minutes."""
+    their ~10^5 small launches takes minutes.  No warm-up run: ``full``
+    ran the same runs earlier in this process (kernels built and loaded,
+    the same shapes allocated)."""
     lines, shares = [], {}
     for m, ws, vl, la in FULL_RUNS:
         if ws != "mega":
@@ -1111,7 +1120,7 @@ def phase_profile(dev):
         d = draws_for(FULL, m, 1000).to(dev)
         what = f"{m}/{ws}/{vl}/{la}"
         summary, table = profile_one(
-            what, lambda: run_batch(dev, FULL, m, ws, vl, la, d))
+            what, lambda: run_batch(dev, FULL, m, ws, vl, la, d), warm=False)
         if summary:
             shares[what] = summary
             lines += table
@@ -3921,7 +3930,8 @@ def phase_whisper_full(dev):
 # fault-tolerant loop, and the serving driver
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "smollm-135m"
-TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")  # training
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd", "wkv6_bwd",
+                 "ssd_bwd")                       # training
 TRAIN_SMALL_ARCHS = ("smollm-135m", "qwen2-0.5b", "minicpm-2b",
                      "stablelm-3b")
 TRAIN_SMALL = dict(batch=2, seq=40, steps=3, lr=1e-3)
@@ -3942,7 +3952,15 @@ TRAIN_KERNEL_SHAPES = (
     ("grok-cap", 1, 512, 512, 8, 2, 128, "bf16",
      dict(causal=True, logits_soft_cap=30.0)),
     ("f32-knobs", 2, 77, 77, 4, 2, 16, "f32",
-     dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)))
+     dict(causal=True, q_offset=5, seq_k_valid=70, logits_soft_cap=3.0)),
+    # the other families' training attention: zamba2-1.2b's shared block,
+    # internvl2-2b's GQA, whisper-base's encoder (Sq = Sk = 1500, not a
+    # multiple of 64) and cross attention (non-causal) and decoder
+    ("zamba2", 8, 2048, 2048, 32, 32, 128, "bf16", dict(causal=True)),
+    ("internvl2", 8, 2048, 2048, 16, 8, 128, "bf16", dict(causal=True)),
+    ("whisper-enc", 16, 1500, 1500, 8, 8, 64, "bf16", dict(causal=False)),
+    ("whisper-cross", 16, 448, 1500, 8, 8, 64, "bf16", dict(causal=False)),
+    ("whisper-dec", 16, 448, 448, 8, 8, 64, "bf16", dict(causal=True)))
 # kernel A's lse against the plain version in float32 on the same inputs,
 # absolute: the scores summed in another order, exp2 / log2 against exp /
 # log, of values up to log(2048) + max score
@@ -4064,14 +4082,15 @@ def train_kernel_case(dev, spec):
                                                   **kw), {}),
           "plain_ms": (lambda _: FA.flash_attention_bwd(
               q, k, v, out, lse, dout, impl="ref", **kw), {})}
-    if kw == {"causal": True}:           # SDPA computes the same function
-        gqa = hkv != h
+    if set(kw) == {"causal"} and (sq == sk or not kw["causal"]):
+        # SDPA computes the same function (no offset, cap or padding)
+        gqa, causal = hkv != h, kw["causal"]
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v))
-        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                             enable_gqa=gqa)
         do = dout.transpose(1, 2)
-        ca["sdpa_ms"] = (lambda _: sdpa_fn(q, k, v, is_causal=True,
+        ca["sdpa_ms"] = (lambda _: sdpa_fn(q, k, v, is_causal=causal,
                                            enable_gqa=gqa), {})
         cb["sdpa_ms"] = (lambda _: torch.autograd.grad(
             so, (qs, ks, vs), do, retain_graph=True), {})
@@ -4146,9 +4165,14 @@ def phase_train_small(dev, counts: dict):
     smoke config (AdamW; WSD for minicpm, cosine otherwise), on the card
     from the port's ``init`` against the same on the CPU: losses, lr,
     grad_norm and the parameters within TRAIN_SMALL_TOL; each card step
-    launches kernel A and kernel B once a layer (no remat at smoke size).
-    Then one 2-microbatch ``make_grad_accum_train_step`` on smollm.  The
-    card steps' launches add to ``counts``."""
+    launches the kernels ``train_launches`` names (no remat at smoke
+    size).  Then one 2-microbatch ``make_grad_accum_train_step`` on
+    smollm, then the smoke configs of TRAIN_FAM_ARCHS (rwkv6, zamba2, the
+    VLM, Whisper: the K5 / K6 forward and backward kernels in float32 and
+    kernels A / B), whose attention key biases are left out of the
+    parameters held (SHIFT_INVARIANT).  The card steps' launches add to
+    ``counts``."""
+    import functools
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.launch.steps import (make_grad_accum_train_step,
@@ -4159,7 +4183,7 @@ def phase_train_small(dev, counts: dict):
     tol = TRAIN_SMALL_TOL
     sp = TRAIN_SMALL
     out = {}
-    for arch in TRAIN_SMALL_ARCHS + ("accum",):
+    for arch in TRAIN_SMALL_ARCHS + ("accum",) + TRAIN_FAM_ARCHS:
         cfg = get_smoke_config(TRAIN_ARCH if arch == "accum" else arch)
         opt = adamw()
         sched = schedule(cfg.name, sp["lr"], 10)
@@ -4179,8 +4203,8 @@ def phase_train_small(dev, counts: dict):
                          for k, v in batch.items()}
             (pd, od, md), c = counted(lambda: step(pd, od, batch))
             hold_counts(f"train-small {arch} step {s}", c, {
-                "flash_attention_lse": cfg.n_layers * max(n_micro, 1),
-                "flash_attention_bwd": cfg.n_layers * max(n_micro, 1)})
+                k: n * max(n_micro, 1)
+                for k, n in train_launches(cfg, sp["seq"]).items()})
             add_counts(counts, c)
             pc, oc, mc = step(pc, oc, batch)
             for key in ("loss", "lr", "grad_norm"):
@@ -4193,8 +4217,11 @@ def phase_train_small(dev, counts: dict):
                     worst[key] = max(worst[key], r)
         if int(od["step"]) != int(oc["step"]):
             fail(f"train-small {arch}: optimizer steps differ")
-        worst["params"] = hold_trees(f"train-small {arch} parameters", pd,
-                                     pc, tol["atol"], tol["rtol"])
+        keep = (lambda t: t) if arch in TRAIN_SMALL_ARCHS + ("accum",) \
+            else functools.partial(drop_leaves, names=SHIFT_INVARIANT)
+        worst["params"] = hold_trees(f"train-small {arch} parameters",
+                                     keep(pd), keep(pc), tol["atol"],
+                                     tol["rtol"])
         worst["adam_m"] = hold_trees(f"train-small {arch} Adam m", od["m"],
                                      oc["m"], tol["atol"], tol["rtol"])
         out[arch] = worst
@@ -4206,16 +4233,19 @@ def phase_train_small(dev, counts: dict):
     return out
 
 
-def leaf_errors(got, want) -> dict:
-    """Normwise error of every stacked leaf's layer slice (and of every
-    other leaf), by path."""
+def leaf_errors(got, want, stacked=("layers",), skip=()) -> dict:
+    """Normwise error of every stacked leaf's layer slice (leaves under a
+    root in ``stacked``) and of every other leaf, by path; leaves named in
+    ``skip`` and empty leaves are left out."""
     out = {}
 
     def walk(g, w, path):
         if isinstance(g, dict):
             for k in g:
                 walk(g[k], w[k], path + (k,))
-        elif path[0] == "layers":
+        elif path[-1] in skip or g.numel() == 0:
+            return
+        elif path[0] in stacked:
             for i in range(g.shape[0]):
                 out["/".join(path) + f"[{i}]"] = normwise(g[i], w[i])
         else:
@@ -4386,6 +4416,397 @@ def phase_train_full(dev, counts: dict):
     return res
 
 
+# training the other families (rwkv6, zamba2, the VLM, Whisper): the K5 /
+# K6 backward kernels against their plain versions, then each family at its
+# published width through ``launch.train.build``
+TRAIN_FAM_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "internvl2-2b",
+                   "whisper-base")
+SCAN_BWD_SOURCES = {"wkv6_bwd": "wkv6", "ssd_bwd": "ssd"}
+# (name, kind, B, T, H, N (K5) or P (K6), N (K6), dtype, strong decays):
+# the two main paths' training shapes, then T not a multiple of the 64-step
+# chunk with a non-zero entering state in both dtypes (K5 with decays down
+# to 1e-20), and float32 at small widths
+SCAN_BWD_CASES = (
+    ("rwkv6", "wkv6", 8, 2048, 32, 64, None, "bf16", False),
+    ("zamba2", "ssd", 8, 2048, 64, 64, 64, "bf16", False),
+    ("wkv6-ragged", "wkv6", 2, 130, 4, 64, None, "bf16", True),
+    ("wkv6-ragged-f32", "wkv6", 2, 130, 4, 64, None, "f32", True),
+    ("wkv6-n8-f32", "wkv6", 1, 70, 3, 8, None, "f32", False),
+    ("ssd-ragged", "ssd", 2, 130, 4, 64, 64, "bf16", False),
+    ("ssd-ragged-f32", "ssd", 2, 130, 4, 64, 64, "f32", False),
+    ("ssd-small-f32", "ssd", 1, 70, 3, 8, 5, "f32", False))
+SCAN_BWD_NAMES = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
+                  "ssd": ("dx", "ddt", "dA", "dBm", "dCm", "dD", "dstate")}
+# the K5 / K6 backward against its plain version run in float32 on the same
+# operands and saved states, normwise: kernel B's TRAIN_GRAD_TOL, for the
+# same reason (each gradient rounded to its type once, float32 sums)
+SCAN_BWD_TOL = TRAIN_GRAD_TOL
+# published-width training, (batch, sequence) a step: 8 x 2048 tokens;
+# the VLM's sequence is 256 patches + 1792 tokens; Whisper's 448 decoder
+# tokens a row after its 1500 frames
+TRAIN_FAM_FULL = {"rwkv6-1.6b": (8, 2048), "zamba2-1.2b": (8, 2048),
+                  "internvl2-2b": (8, 2048), "whisper-base": (16, 448)}
+TRAIN_FAM_TIMED = 3         # full-depth steps timed, after a warm one
+# step 0 against the plain versions on the first layers at full width
+# (the plain scans step through time one step at a time): two, and for
+# zamba2 its first segment, six Mamba blocks and the shared attention's
+# first application (two blocks would have none)
+TRAIN_FAM_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "internvl2-2b": 2,
+                    "whisper-base": 2}
+# step 0's leaf check (kernels vs plain versions, both bf16) also holds
+# each leaf to a float32 run of the plain versions: a leaf passes within
+# TRAIN_FULL_TOL["leaf"] of the plain bf16 gradient, or when the kernels'
+# gradient is no farther from the float32 one than FAM_F32_RATIO times the
+# plain bf16 gradient is: the bf16 model's own rounding can put a leaf
+# past the first limit while the kernels' gradient is as near float32 as
+# the plain path's (the ``train-full-*`` lines print the leaf farthest
+# from the plain bf16 gradient with its two float32 readings)
+FAM_F32_RATIO = 1.5
+# attention key biases: their gradient is zero in exact arithmetic (the
+# same bias on every key shifts a softmax row by a constant), so both sides
+# hold rounding noise there, which Adam turns into lr-sized steps; left out
+# of the parameters and gradients held
+SHIFT_INVARIANT = ("bk",)
+STACKED = ("layers", "mamba", "enc_layers", "dec_layers")
+
+
+def drop_leaves(tree, names):
+    """``tree`` without the leaves whose key is in ``names``."""
+    if isinstance(tree, dict):
+        return {k: drop_leaves(v, names) for k, v in tree.items()
+                if not (k in names and not isinstance(v, dict))}
+    return tree
+
+
+def train_launches(cfg, seq: int) -> dict:
+    """The launches one ``make_train_step`` step of ``cfg`` makes at
+    sequence length ``seq``: kernel A once a forward and kernel B once for
+    each attention layer (Whisper: the encoder's, and the decoder's self
+    and cross attention), the K5 / K6 forward once a forward and the
+    backward once for each scan layer; with ``cfg.remat`` every
+    checkpointed block's forward runs twice (zamba2's shared attention is
+    not checkpointed).  bf16 scans at ``seq`` from CHUNKED_MIN_T on take
+    the chunked forward."""
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.models import zamba2
+    fwd = 2 if cfg.remat else 1
+    bf16 = cfg.jdtype == torch.bfloat16
+    if cfg.family in ("dense", "vlm"):
+        return {"flash_attention_lse": fwd * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    if cfg.family == "whisper":
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+        return {"flash_attention_lse": fwd * n, "flash_attention_bwd": n}
+    if cfg.family == "rwkv6":
+        out = {"wkv6": fwd * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+        if bf16 and seq >= WK.CHUNKED_MIN_T:
+            out["wkv6_chunked"] = out["wkv6"]
+        return out
+    if cfg.family == "zamba2":
+        apps = zamba2._n_apps(cfg)
+        out = {"ssd": fwd * cfg.n_layers, "ssd_bwd": cfg.n_layers,
+               "flash_attention_lse": apps, "flash_attention_bwd": apps}
+        if bf16 and seq >= SS.CHUNKED_MIN_T:
+            out["ssd_chunked"] = out["ssd"]
+        return out
+    fail(f"train_launches: no training path for the {cfg.family} family")
+
+
+def scan_bwd_inputs(kind, b, t, h, c, n, dt, strong, dev, gen):
+    """(forward arguments, dy, dstate_out) of a K5 (c = N) or K6 (c = P)
+    case; K6's x, Bm and Cm are slices of one tensor, as the model hands
+    in its conv output."""
+    import torch.nn.functional as F
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa
+    if kind == "wkv6":
+        r, k, v = (rnd(b, t, h, c).to(dt) for _ in range(3))
+        w = torch.exp(-torch.exp(rnd(b, t, h, c) - (0.0 if strong else 3.0)))
+        if strong:
+            w[:, 3:9] = 1e-20
+        return ((r, k, v, w, rnd(h, c).to(dt), rnd(b, h, c, c)),
+                rnd(b, t, h, c).to(dt), rnd(b, h, c, c))
+    xbc = rnd(b, t, h * c + 2 * n).to(dt)
+    args = (xbc[..., :h * c].reshape(b, t, h, c),
+            F.softplus(rnd(b, t, h) - 1.0), -torch.exp(0.5 * rnd(h)),
+            xbc[..., h * c:h * c + n], xbc[..., h * c + n:], rnd(h),
+            rnd(b, h, c, n))
+    return args, rnd(b, t, h, c).to(dt), rnd(b, h, c, n)
+
+
+def scan_bwd_bound(kind, ins, grads):
+    """The least time of a K5 / K6 backward: ``ins`` (the operands, the
+    saved states, dy, dstate_out) read once and ``grads`` written once,
+    against its chunk products (K5: P, X, Y, G, K dSL and A^T dY; K6: CB,
+    DX, DYS, G_in, XG, BG and the three intra-chunk sums), 2 x 64^3 flops
+    each a (batch, head, chunk), at the peak of the inputs' type."""
+    nbytes = sum(z.numel() * z.element_size() for z in (*ins, *grads))
+    dy = ins[-2]
+    b, t, h = dy.shape[:3]
+    flops = (6 if kind == "wkv6" else 9) * 2 * 64 ** 3 * b * h * -(-t // 64)
+    peak = BF16_FLOPS if dy.dtype == torch.bfloat16 else F32_FLOPS
+    return bound_ms(nbytes, flops, peak)
+
+
+def scan_bwd_case(dev, spec):
+    """The K5 or K6 backward at one shape against its plain version run in
+    float32 on the same operands and the same saved chunk states (from the
+    forward kernel, under grad): every gradient within SCAN_BWD_TOL
+    normwise, a planted fault (head 0 of the second gradient zeroed) above
+    ten times it, two launches bit-equal; timed (with the plain version in
+    turns) at the main paths' shapes."""
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.ssm_scan import ops as SS
+    name, kind, b, t, h, c, n, dts, strong = spec
+    dt = torch.bfloat16 if dts == "bf16" else torch.float32
+    gen = torch.Generator(dev).manual_seed(37)
+    args, dy, ds = scan_bwd_inputs(kind, b, t, h, c, n, dt, strong, dev, gen)
+    mod = WK if kind == "wkv6" else SS
+    plain = mod.R.wkv6_bwd_ref if kind == "wkv6" else mod.R.ssd_bwd_ref
+    _, _, states = mod._forward(*args, keep=True)
+    ops_in = args[:-1]
+    got = mod.launch_bwd(*ops_in, states, dy, ds)
+    again = mod.launch_bwd(*ops_in, states, dy, ds)
+    want = plain(*(z.float() for z in ops_in), states, dy.float(), ds)
+    torch.cuda.synchronize()
+    tol = SCAN_BWD_TOL[dts]
+    errs = {nm: normwise(g, w) for nm, g, w in
+            zip(SCAN_BWD_NAMES[kind], got, want)}
+    bad = got[1].clone()
+    bad[:, :, 0] = 0
+    planted = normwise(bad, want[1])
+    if max(errs.values()) > tol or planted <= 10 * tol \
+            or not all(bool(torch.isfinite(g).all()) for g in got):
+        fail(f"train-kernels {name}: the {kind} backward differs from the "
+             f"plain version normwise by {errs} (limit {tol}; planted "
+             f"fault {planted})")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"train-kernels {name}: two launches of the {kind} backward "
+             "on the same inputs differ")
+    res = {"kind": kind, "shape": [b, t, h, c] + ([n] if n else []),
+           "dtype": dts, "strong_decays": strong, "grad_normwise": errs,
+           "planted": planted,
+           "max_abs_err": max(max_diff(g, w) for g, w in zip(got, want)),
+           "bound": scan_bwd_bound(kind, (*ops_in, states, dy, ds), got)}
+    if name in ("rwkv6", "zamba2"):
+        res.update(time_turns({
+            "ms": (lambda _: mod.launch_bwd(*ops_in, states, dy, ds), {}),
+            "plain_ms": (lambda _: plain(*ops_in, states, dy, ds),
+                         {"reps": 1})}))
+        HOST[kind + "_bwd"] = host_us(
+            lambda _: mod.launch_bwd(*ops_in, states, dy, ds))
+    return res
+
+
+def phase_train_scan_kernels(dev):
+    """The K5 / K6 backward kernels at SCAN_BWD_CASES (see
+    ``scan_bwd_case``); the kernels line's rows ``wkv6_bwd`` / ``ssd_bwd``
+    carry rwkv6-1.6b's / zamba2-1.2b's training shape and the largest
+    error of every case.  Returns those rows (less their launches) and the
+    cases."""
+    cases = {spec[0]: scan_bwd_case(dev, spec) for spec in SCAN_BWD_CASES}
+    rows = {}
+    for key, kind in SCAN_BWD_SOURCES.items():
+        t = cases["rwkv6" if kind == "wkv6" else "zamba2"]
+        rows[key] = {"max_abs_err": max(c["max_abs_err"] for c in
+                                        cases.values() if c["kind"] == kind),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound": t["bound"], "sdpa_ms": None}
+    say("train-kernels-scan " + "; ".join(
+        f"{nm} {c['kind']} {c['dtype']} {c['shape']}"
+        + (" decays to 1e-20" if c["strong_decays"] else "")
+        + ": normwise " + ",".join(f"{g}={e:.2e}"
+                                   for g, e in c["grad_normwise"].items())
+        + f" (planted {c['planted']:.2e}; limit "
+        f"{SCAN_BWD_TOL[c['dtype']]:.2e}), twice bit-equal"
+        + (f", ms={c['ms']:.4f} plain_ms={c['plain_ms']:.1f} "
+           f"bound_ms={c['bound'][0]:.5f} ({c['bound'][1]})"
+           if "ms" in c else "")
+        for nm, c in cases.items())
+        + f"; host_us wkv6_bwd={HOST['wkv6_bwd']:.1f} "
+        f"ssd_bwd={HOST['ssd_bwd']:.1f}")
+    return rows, cases
+
+
+@contextlib.contextmanager
+def patched_attrs(pairs):
+    """Each ``(module, name, fn)`` in ``pairs`` set for the span."""
+    old = [(m, k, getattr(m, k)) for m, k, _ in pairs]
+    for m, k, f in pairs:
+        setattr(m, k, f)
+    try:
+        yield
+    finally:
+        for m, k, f in old:
+            setattr(m, k, f)
+
+
+def phase_train_family_full(dev, arch: str, counts: dict):
+    """``arch`` (one of TRAIN_FAM_ARCHS) trained at its published width
+    (bf16, remat) at TRAIN_FAM_FULL.  Step 0 first on a copy cut to its
+    first TRAIN_FAM_LAYERS[arch] layers (encoder and decoder for Whisper)
+    at full width: loss, grad norm and every leaf's gradient with the kernels
+    against the plain versions on the card (``impl="ref"``: the plain
+    scans under their Functions, ``blocked_*_ref`` for attention) within
+    TRAIN_FULL_TOL, or each leaf no farther from a float32 run of the
+    plain versions than FAM_F32_RATIO times the plain bf16 gradient, and
+    a planted fault (the first backward launch of the family's own kernel
+    returning a zeroed dk, or dx for zamba2) above both.
+    Then the full-depth model through ``launch.train.build`` (AdamW +
+    cosine, clip 1.0): one warm step and TRAIN_FAM_TIMED timed steps,
+    each step's launches held to ``train_launches``; median step ms,
+    tokens/s, peak memory; one more step traced
+    (``chiprun_out/profile_train_<family>.txt``)."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.base import count_params, get_family
+    from repro_torch.optim import clip_by_global_norm
+    bsz, seq = TRAIN_FAM_FULL[arch]
+    n_cut = TRAIN_FAM_LAYERS[arch]
+    tol = TRAIN_FULL_TOL
+    full = get_config(arch)
+    cut = {"n_layers": n_cut}
+    if full.family == "whisper":
+        cut["n_enc_layers"] = n_cut
+    cfg2 = dataclasses.replace(full, **cut)
+    fam = get_family(cfg2)
+    dcfg = DataConfig(seed=0, batch_size=bsz, seq_len=seq)
+    p2 = fam.init(cfg2, seed=0, device=dev)
+    b0 = {k: torch.as_tensor(v).to(dev)
+          for k, v in synthetic_batch(cfg2, dcfg, 0).items()}
+
+    def grads_of():
+        (loss, _), g = value_and_grad(
+            lambda p: fam.loss_fn(cfg2, p, b0), p2)
+        return float(loss), g, float(clip_by_global_norm(g, 1.0)[1])
+
+    (loss_k, g_k, gn_k), c0 = counted(grads_of)
+    hold_counts(f"train-full {arch} step 0 ({n_cut} layers)", c0,
+                train_launches(cfg2, seq))
+    ref = lambda f: functools.partial(f, impl="ref")  # noqa: E731
+    with patched_attrs([
+            (FA, "flash_attention_lse", ref(FA.flash_attention_lse)),
+            (FA, "flash_attention_bwd", ref(FA.flash_attention_bwd)),
+            (WK, "wkv6", ref(WK.wkv6)), (SS, "ssd", ref(SS.ssd))]):
+        loss_p, g_p, gn_p = grads_of()
+        c32 = dataclasses.replace(cfg2, dtype="float32")
+        p32 = tree_map(lambda z: z.float(), p2)
+        g_32 = value_and_grad(lambda p: fam.loss_fn(c32, p, b0), p32)[1]
+        del p32
+    mod, fn, idx = {"rwkv6": (WK, "launch_bwd", 1),
+                    "zamba2": (SS, "launch_bwd", 0)}.get(
+        full.family, (FA, "flash_attention_bwd", 1))
+    real, calls = getattr(mod, fn), []
+
+    def zero_once(*a, **kw):              # the last layer's, in backward
+        out = list(real(*a, **kw))
+        calls.append(1)
+        if len(calls) == 1:
+            out[idx] = torch.zeros_like(out[idx])
+        return tuple(out)
+    with patched_attrs([(mod, fn, zero_once)]):
+        _, g_bad, _ = grads_of()
+    lerr = lambda a, b: leaf_errors(a, b, STACKED, SHIFT_INVARIANT)  # noqa
+    e_p32 = lerr(g_p, g_32)
+
+    def excess(g):
+        """Per leaf, the smaller of its two readings over its limit."""
+        e_kp, e_k32 = lerr(g, g_p), lerr(g, g_32)
+        return {k: min(e_kp[k] / tol["leaf"],
+                       e_k32[k] / (FAM_F32_RATIO * max(e_p32[k], 1e-30)))
+                for k in e_kp}
+    ex = excess(g_k)
+    worst = max(ex, key=ex.get)
+    e_kp, e_k32 = lerr(g_k, g_p), lerr(g_k, g_32)
+    errs = {"vs_plain": e_kp[worst], "vs_f32": e_k32[worst],
+            "plain_vs_f32": e_p32[worst]}
+    far = max(e_kp, key=e_kp.get)       # the leaf farthest from plain bf16
+    far_errs = {"leaf": far, "vs_plain": e_kp[far], "vs_f32": e_k32[far],
+                "plain_vs_f32": e_p32[far]}
+    planted = max(excess(g_bad).values())
+    loss_r = abs(loss_k - loss_p) / abs(loss_p)
+    gn_r = abs(gn_k - gn_p) / abs(gn_p)
+    if loss_r > tol["loss"] or gn_r > tol["grad_norm"] \
+            or ex[worst] > 1.0 or planted <= 1.0:
+        fail(f"train-full {arch} step 0 ({n_cut} layers), kernels "
+             f"vs plain versions: loss {loss_k} vs {loss_p}, grad norm "
+             f"{gn_k} vs {gn_p}, worst leaf {worst} {errs} (excess "
+             f"{ex[worst]}), planted fault's excess {planted} (limits "
+             f"{json.dumps(tol)}, FAM_F32_RATIO {FAM_F32_RATIO})")
+    del p2, g_k, g_p, g_bad, g_32, b0
+    torch.cuda.empty_cache()
+
+    cfg, step_fn, params, opt0, dcfg = train.build(
+        arch, False, bsz, seq, 3e-4, 10, device=dev)
+    if not (cfg.remat and cfg.jdtype == torch.bfloat16):
+        fail(f"train-full {arch}: {cfg.name} is not bf16 / remat")
+    want = train_launches(cfg, seq)
+    batches = [synthetic_batch(cfg, dcfg, s)
+               for s in range(TRAIN_FAM_TIMED + 1)]
+    n_params = count_params(params)
+    p, o = params, opt0
+    del params, opt0                  # each step's inputs go when it ends
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for i, bt in enumerate(batches):
+        t0 = time.perf_counter()
+        (p, o, m), c = counted(lambda: step_fn(p, o, bt))
+        if i:
+            secs.append(time.perf_counter() - t0)
+        hold_counts(f"train-full {arch} step {i}", c, want)
+        add_counts(counts, c)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train-full {arch}: losses {losses}")
+    # one step traced (after the timed ones): where it goes
+    prof, lines = profile_one(f"train step {cfg.name} {bsz} x {seq}",
+                              lambda: step_fn(p, o, batches[0]), warm=False)
+    write_out(f"profile_train_{cfg.family}.txt", lines)
+    del p, o
+    torch.cuda.empty_cache()
+    step_s = statistics.median(secs)
+    toks = bsz * seq
+    res = {"params": n_params, "batch": [bsz, seq],
+           "step0_layers": n_cut, "step0": {
+               "loss": loss_k, "loss_plain": loss_p, "grad_norm": gn_k,
+               "grad_norm_plain": gn_p, "worst_leaf": worst,
+               "worst_leaf_err": errs, "worst_leaf_excess": ex[worst],
+               "farthest_from_plain": far_errs, "planted_excess": planted},
+           "step_ms": [1e3 * x for x in secs],
+           "median_step_ms": 1e3 * step_s, "tokens_per_s": toks / step_s,
+           "peak_mem_bytes": peak, "launches_per_step": want,
+           "losses": losses, "profile": prof}
+    say(f"train-full-{cfg.family} {cfg.name} ({n_params:,} parameters, "
+        f"bf16, remat) batch {bsz} x {seq}"
+        + (f" after {cfg.enc_seq} frames" if cfg.family == "whisper" else "")
+        + (f" ({cfg.n_patches} patches + {seq - cfg.n_patches} tokens)"
+           if cfg.family == "vlm" else "")
+        + f": step 0 on {n_cut} layers kernels vs plain loss "
+        f"{loss_k:.6f} / {loss_p:.6f}, grad norm {gn_k:.5f} / {gn_p:.5f}, "
+        f"worst leaf {worst} vs plain {errs['vs_plain']:.2e}, vs float32 "
+        f"{errs['vs_f32']:.2e} (plain {errs['plain_vs_f32']:.2e}), excess "
+        f"{ex[worst]:.2f}, farthest from plain {far} "
+        f"{far_errs['vs_plain']:.2e} (vs float32 {far_errs['vs_f32']:.2e}, "
+        f"plain {far_errs['plain_vs_f32']:.2e}) (planted {planted:.2f}; limits "
+        f"{json.dumps(tol)}, FAM_F32_RATIO {FAM_F32_RATIO}); full depth: "
+        f"median step "
+        f"{res['median_step_ms']:.1f} ms, {res['tokens_per_s']:,.0f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB, losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches a step {json.dumps(want)}")
+    return res
+
+
 GREEDY_TOL = 1e-4   # a card token's logit below the CPU's best, float32
 
 
@@ -4488,6 +4909,13 @@ SOURCES = {
                      "src/repro/kernels/rwkv6_scan/kernel.py:69"),
     "ssd_chunked": ("src/repro_torch/csrc/ssm_chunk.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:65"),
+    # the backward of the chunked scans: the counterparts of the autodiff
+    # of the JAX package's jnp training scans (its Pallas kernels have no
+    # VJP)
+    "wkv6_bwd": ("src/repro_torch/csrc/rwkv6_chunk_bwd.cu",
+                 "src/repro/kernels/rwkv6_scan/ops.py:23"),
+    "ssd_bwd": ("src/repro_torch/csrc/ssm_chunk_bwd.cu",
+                "src/repro/kernels/ssm_scan/ops.py:15"),
 }
 # the shape whose times the kernels line carries: the sequential kernels
 # (rows ``*_step``: they walk the steps one by one) serve single steps,
@@ -4629,7 +5057,9 @@ def main() -> int:
     # published width (one main path), then the serving driver (another)
     with clock("train_kernels"):
         train_rows, train_kern = phase_train_kernels(dev)
+        scan_rows, scan_kern = phase_train_scan_kernels(dev)
     attn.update(train_rows)
+    attn.update(scan_rows)
     torch.cuda.synchronize()
     reset_launches()
     train_counts: dict = {}
@@ -4637,6 +5067,11 @@ def main() -> int:
         train_small = phase_train_small(dev, train_counts)
     with clock("train_full"):
         train_full = phase_train_full(dev, train_counts)
+    train_fam = {}
+    for arch in TRAIN_FAM_ARCHS:      # the other families at full width
+        with clock("train_full_" + arch.split("-")[0]):
+            train_fam[arch] = phase_train_family_full(dev, arch,
+                                                      train_counts)
     torch.cuda.synchronize()
     reset_launches()
     with clock("serve_launch"):
@@ -4717,6 +5152,8 @@ def main() -> int:
               "rec_profile": rec_prof, "families_small": fam_small,
               "families_full": fam_full, "train_kernels": train_kern,
               "train_small": train_small, "train_full": train_full,
+              "train_scan_kernels": scan_kern,
+              "train_families_full": train_fam,
               "launches_train": train_counts,
               "launches_serve_launch": serve_counts,
               "launches_total": total,

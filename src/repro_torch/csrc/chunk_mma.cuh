@@ -216,4 +216,110 @@ __device__ __forceinline__ void raise_flag(int* f) {
                  : "memory");
 }
 
+// ---------------------------------------------------------------------
+// The backward kernels' pieces (rwkv6_chunk_bwd.cu, ssm_chunk_bwd.cu).
+// Float tiles there are [64][LD] with a padded row, read through getters.
+
+constexpr int LD = L + 1;              // padded float row
+constexpr int FT = L * LD;             // floats per padded tile
+__device__ __forceinline__ int ti(int r, int c) { return r * LD + c; }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
+  return __float2bfloat16(x);
+}
+
+// acc (a 16 x 32 block at rows m0.., cols n0.. of a 64 x 64 product) +=
+// sum_{k < 64} A(m, k) B(k, n), both operands float32 read through the
+// getters ga(m, k), gb(k, n) and split into three bf16 pieces each (six
+// mma per tile, as in the forward kernels: float32 accuracy on the tensor
+// cores).  acc[jn][e] is element (m0 + g + 8 (e / 2), n0 + 8 jn + 2 (lane %
+// 4) + e % 2) with g = lane / 4.
+template <class GA, class GB>
+__device__ __forceinline__ void mm6(float (&acc)[4][4], int m0, int n0,
+                                    int lane, GA ga, GB gb) {
+  const int g = lane >> 2, cq = (lane & 3) * 2;
+#pragma unroll 1
+  for (int k0 = 0; k0 < L; k0 += 16) {
+    uint32_t a3[3][4];
+    a_split(a3, m0, k0, lane, [&](int rr, int c) {
+      return make_float2(ga(rr, c), ga(rr, c + 1));
+    });
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int nn = n0 + 8 * jn + g;
+      uint32_t b0[3], b1[3];
+      split3(gb(k0 + cq, nn), gb(k0 + cq + 1, nn), b0[0], b0[1], b0[2]);
+      split3(gb(k0 + cq + 8, nn), gb(k0 + cq + 9, nn), b1[0], b1[1], b1[2]);
+      mma(acc[jn], a3[0], b0[0], b1[0]);
+      mma(acc[jn], a3[0], b0[1], b1[1]);
+      mma(acc[jn], a3[1], b0[0], b1[0]);
+      mma(acc[jn], a3[0], b0[2], b1[2]);
+      mma(acc[jn], a3[2], b0[0], b1[0]);
+      mma(acc[jn], a3[1], b0[1], b1[1]);
+    }
+  }
+}
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jn][e] = 0.0f;
+}
+// f(row, col, value) for each element of acc
+template <class F>
+__device__ __forceinline__ void each_acc(float (&acc)[4][4], int m0,
+                                         int n0, int lane, F f) {
+  const int g = lane >> 2, cq = (lane & 3) * 2;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f(m0 + g + ((e >> 1) << 3), n0 + 8 * jn + cq + (e & 1), acc[jn][e]);
+}
+
+// the sum over a block's threads, in a fixed order; red holds 8 floats
+// (8 warps); the result is in thread 0
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// out[q * I + i] = sum_{g < G} in[(q * G + g) * I + i], g in order: the
+// second stage of a deterministic sum over heads or over (batch, chunk)
+__global__ void group_sum_kernel(const float* __restrict__ in,
+                                 float* __restrict__ out, int G,
+                                 long long I, long long total) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long q = e / I, i = e % I;
+    const float* src = in + q * G * I + i;
+    float s = 0.0f;
+    for (int g = 0; g < G; ++g) s += src[g * I];
+    out[e] = s;
+  }
+}
+inline int group_sum(const float* in, float* out, int nq, int G,
+                     long long I, cudaStream_t stream) {
+  const long long total = (long long)nq * I;
+  if (total == 0) return 0;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
+                                                     : 4096);
+  group_sum_kernel<<<blocks, 256, 0, stream>>>(in, out, G, I, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace chunk

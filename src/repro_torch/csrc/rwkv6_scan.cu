@@ -38,6 +38,10 @@
 namespace {
 
 constexpr int CH = 16;
+// under training the state entering every chunk of SAVE_EVERY steps goes
+// out (s_mid, [ceil(T / 64) - 1, B * H, N, N]) for rwkv6_chunk_bwd.cu
+constexpr int SAVE_EVERY = 64;
+static_assert(SAVE_EVERY % CH == 0, "states are saved between stages");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -56,8 +60,8 @@ __global__ void __launch_bounds__(NM)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const float* __restrict__ w,
             const T* __restrict__ u, const float* __restrict__ s0,
-            T* __restrict__ y, float* __restrict__ s_out, int t_len, int h,
-            int n) {
+            T* __restrict__ y, float* __restrict__ s_out,
+            float* __restrict__ s_mid, int t_len, int h, int n) {
   __shared__ float sr[CH][NM], sk[CH][NM], sw[CH][NM], su[NM];
   const int i = threadIdx.x;
   const bool live = i < n;
@@ -74,6 +78,13 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
   for (int t0 = 0; t0 < t_len; t0 += CH) {
     const int cn = min(CH, t_len - t0);
+    if (s_mid != nullptr && live && t0 > 0 && t0 % SAVE_EVERY == 0) {
+      float* dst = s_mid + ((size_t)(t0 / SAVE_EVERY - 1) * gridDim.x +
+                            blockIdx.x) * n * n;
+#pragma unroll
+      for (int j = 0; j < NM; ++j)
+        if (j < n) dst[(size_t)j * n + i] = S[j];
+    }
     __syncthreads();                  // the previous chunk is consumed
     for (int c = 0; c < CH; ++c) {
       const bool ok = live && c < cn;
@@ -105,39 +116,47 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 template <typename T, int NM>
 int launch_n(const void* r, const void* k, const void* v, const float* w,
-             const void* u, const float* s0, void* y, float* s_out, int b,
-             int t_len, int h, int n, cudaStream_t stream) {
+             const void* u, const float* s0, void* y, float* s_out,
+             float* s_mid, int b, int t_len, int h, int n,
+             cudaStream_t stream) {
   wkv6_kernel<T, NM><<<b * h, NM, 0, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, w, (const T*)u, s0, (T*)y,
-      s_out, t_len, h, n);
+      s_out, s_mid, t_len, h, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const float* w,
-           const void* u, const float* s0, void* y, float* s_out, int b,
-           int t_len, int h, int n, cudaStream_t s) {
-  if (n <= 8) return launch_n<T, 8>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
-  if (n <= 16) return launch_n<T, 16>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
-  if (n <= 32) return launch_n<T, 32>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
-  return launch_n<T, 64>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
+           const void* u, const float* s0, void* y, float* s_out,
+           float* s_mid, int b, int t_len, int h, int n, cudaStream_t s) {
+  if (n <= 8)
+    return launch_n<T, 8>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len, h, n, s);
+  if (n <= 16)
+    return launch_n<T, 16>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len, h, n, s);
+  if (n <= 32)
+    return launch_n<T, 32>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len, h, n, s);
+  return launch_n<T, 64>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len, h, n, s);
 }
 
 }  // namespace
 
 // dtype (of r, k, v, u, y): 0 float32, 1 bfloat16.  All tensors packed.
-// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
-// shapes the kernel does not take (N > 64).
+// s_mid: null, or (ceil(T / 64) - 1) * B * H * N * N float32 for the states
+// entering each chunk of 64 steps after the first.  Returns a cudaError_t
+// (0 on success); 1 (cudaErrorInvalidValue) for shapes the kernel does not
+// take (N > 64).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const float* w, const void* u, const float* s0,
                         void* y, float* s_out, int b, int t_len, int h, int n,
-                        int dtype, void* stream) {
+                        int dtype, void* stream, float* s_mid) {
   if (n < 1 || n > 64 || h < 1 || t_len < 0) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
+    return launch<float>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len, h, n,
+                         s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, b, t_len, h, n, s);
+    return launch<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, s_mid, b, t_len,
+                                 h, n, s);
   return (int)cudaErrorInvalidValue;
 }

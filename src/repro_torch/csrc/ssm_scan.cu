@@ -39,6 +39,10 @@
 namespace {
 
 constexpr int CH = 16;
+// under training the state entering every chunk of SAVE_EVERY steps goes
+// out (s_mid, [ceil(T / 64) - 1, B * H, P, N]) for ssm_chunk_bwd.cu
+constexpr int SAVE_EVERY = 64;
+static_assert(SAVE_EVERY % CH == 0, "states are saved between stages");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -58,7 +62,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ D,
            const float* __restrict__ s0, T* __restrict__ y,
-           float* __restrict__ s_out, int t_len, int h, int p, int n,
+           float* __restrict__ s_out, float* __restrict__ s_mid, int t_len,
+           int h, int p, int n,
            long long x_sb, long long x_st, long long b_sb, long long b_st,
            long long c_sb, long long c_st) {
   __shared__ float sb[CH][NM], sc[CH][NM], sdt[CH];
@@ -87,6 +92,13 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int t0 = 0; t0 < t_len; t0 += CH) {
     const int cn = min(CH, t_len - t0);
+    if (s_mid != nullptr && live && t0 > 0 && t0 % SAVE_EVERY == 0) {
+      float* dst = s_mid + ((size_t)(t0 / SAVE_EVERY - 1) * gridDim.x +
+                            blockIdx.x) * p * n + (size_t)i * n;
+#pragma unroll
+      for (int j = 0; j < NM; ++j)
+        if (j < n) dst[j] = S[j];
+    }
     __syncthreads();                  // the previous chunk is consumed
     for (int e = i; e < CH * NM; e += PM) {
       const int c = e / NM, j = e % NM;
@@ -126,7 +138,7 @@ struct Args {
   const void *x, *bm, *cm;
   const float *dt, *a, *d, *s0;
   void* y;
-  float* s_out;
+  float *s_out, *s_mid;
   int b, t_len, h, p, n;
   long long x_sb, x_st, b_sb, b_st, c_sb, c_st;
 };
@@ -135,7 +147,7 @@ template <typename T, int PM, int NM>
 int launch_pn(const Args& g, cudaStream_t stream) {
   ssd_kernel<T, PM, NM><<<g.b * g.h, PM, 0, stream>>>(
       (const T*)g.x, g.dt, g.a, (const T*)g.bm, (const T*)g.cm, g.d, g.s0,
-      (T*)g.y, g.s_out, g.t_len, g.h, g.p, g.n, g.x_sb, g.x_st, g.b_sb,
+      (T*)g.y, g.s_out, g.s_mid, g.t_len, g.h, g.p, g.n, g.x_sb, g.x_st, g.b_sb,
       g.b_st, g.c_sb, g.c_st);
   return (int)cudaGetLastError();
 }
@@ -159,19 +171,21 @@ int launch(const Args& g, cudaStream_t s) {
 }  // namespace
 
 // dtype (of x, Bm, Cm, y): 0 float32, 1 bfloat16; strides in elements.
-// Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
-// shapes the kernel does not take (P or N > 64).
+// s_mid: null, or (ceil(T / 64) - 1) * B * H * P * N float32 for the states
+// entering each chunk of 64 steps after the first.  Returns a cudaError_t
+// (0 on success); 1 (cudaErrorInvalidValue) for shapes the kernel does not
+// take (P or N > 64).
 extern "C" int ssd_fwd(const void* x, const float* dt, const float* a,
                        const void* bm, const void* cm, const float* d,
                        const float* s0, void* y, float* s_out, int b,
                        int t_len, int h, int p, int n, long long x_sb,
                        long long x_st, long long b_sb, long long b_st,
                        long long c_sb, long long c_st, int dtype,
-                       void* stream) {
+                       void* stream, float* s_mid) {
   if (p < 1 || p > 64 || n < 1 || n > 64 || h < 1 || t_len < 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  const Args g{x, bm, cm, dt, a, d, s0, y, s_out, b, t_len, h, p, n,
+  const Args g{x, bm, cm, dt, a, d, s0, y, s_out, s_mid, b, t_len, h, p, n,
                x_sb, x_st, b_sb, b_st, c_sb, c_st};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(g, s);

@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("uct_select", "search_wave", "flash_attention",
            "flash_attention_bwd", "decode_attention", "rwkv6_scan",
-           "ssm_scan", "rwkv6_chunk", "ssm_chunk")
+           "ssm_scan", "rwkv6_chunk", "ssm_chunk", "rwkv6_chunk_bwd",
+           "ssm_chunk_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 EXACT_FMA = ("uct_select", "search_wave", "rwkv6_scan", "ssm_scan")

@@ -91,3 +91,120 @@ def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int = 64, sub: int = 16):
             + torch.einsum("bshj,bshi->bhji", kd, vc)
     y = torch.cat(ys, 1)[:, :t]
     return y.to(r.dtype), s
+
+
+def wkv6_fwd_ref(r, k, v, w, u, state, chunk: int = 64):
+    """``wkv6_ref`` that also keeps the state entering every chunk of
+    ``chunk`` steps: (y, final state, states ``[nc, B, H, N, N]`` float32,
+    ``states[0]`` the input state) -- what the training forward saves for
+    ``wkv6_bwd_ref`` / ``csrc/rwkv6_chunk_bwd.cu``."""
+    r_, k_, v_, w_ = (x.float() for x in (r, k, v, w))
+    u_ = u.float()[None, :, :, None]
+    s = state.float()
+    ys, kept = [], []
+    for t in range(r.shape[1]):
+        if t % chunk == 0:
+            kept.append(s)
+        kv = k_[:, t, :, :, None] * v_[:, t, :, None, :]
+        ys.append(torch.einsum("bhj,bhji->bhi", r_[:, t], s + u_ * kv))
+        s = s * w_[:, t, :, :, None] + kv
+    y = torch.stack(ys, 1) if ys else r_.new_zeros(r.shape)
+    states = torch.stack(kept) if kept else s.new_zeros((0,) + s.shape)
+    return y.to(r.dtype), s, states
+
+
+def _excl_cumprod(z, dim: int):
+    """``out[t] = prod_{i < t} z[i]`` along ``dim``: products, no
+    division."""
+    inc = torch.cumprod(z, dim)
+    return torch.cat([torch.ones_like(z.narrow(dim, 0, 1)),
+                      inc.narrow(dim, 0, z.shape[dim] - 1)], dim)
+
+
+def wkv6_bwd_ref(r, k, v, w, u, states, dy, dstate_out=None,
+                 chunk: int = 64):
+    """The WKV6 backward in plain PyTorch, in the dataflow of
+    ``csrc/rwkv6_chunk_bwd.cu``: a reverse scan over chunks of ``chunk``
+    steps (the tail padded with r = k = v = dy = 0, w = 1) carrying the
+    state gradient dS from chunk c + 1 to c, each chunk recomputed from its
+    entering state ``states[c]`` (``wkv6_fwd_ref``'s third result).
+
+    Within a chunk (t, s local; S0 entering state, dSL the gradient of the
+    leaving one), with D(a, b) = prod_{a <= i < b} w_i per key channel j --
+    running products of w, so every factor is <= 1 and no decay is
+    divided by -- and Dsp[t, s] = D(s + 1, t) for s < t:
+
+      P = dY V^T, X = dY S0^T, Y = V dSL^T                  (64 x 64 each)
+      dS0  = D(0, L) o dSL + sum_t (r_t o D(0, t))^T dy_t
+      A[t, s] = sum_j r_t k_s Dsp[t, s]                     (the scores)
+      dv_s = (k_s o D(s+1, L)) dSL + sum_{t>s} A[t, s] dy_t + b_s dy_s
+      dr_t = D(0, t) o X_t + sum_{s<t} P[t, s] k_s o Dsp[t, s] + u o k_t P[t, t]
+      dk_s = D(s+1, L) o Y_s + sum_{t>s} P[t, s] r_t o Dsp[t, s] + r_s o u P[s, s]
+      dw_t = sum_i dS_{t+1}[:, i] S_t[:, i]
+           = D(0, t) D(t+1, L) o a + D(0, t) o Z_t + D(t+1, L) o U_t + Q_t
+        a = sum_i S0 o dSL, Z_t = sum_{t'>t} Dsp[t', t] r_t' o X_t',
+        U_t = sum_{s<t} Dsp[t, s] k_s o Y_s,
+        Q_t = sum_{s<t<t'} Dsp[t, s] Dsp[t', t] r_t' o k_s P[t', s]
+      du   = sum_t r_t o k_t P[t, t]
+
+    (b_s = r_s . (u o k_s)).  dw is formed without dividing by w, so it
+    stays finite where w is down at 1e-38.  Returns (dr, dk, dv in r's
+    dtype, dw float32, du in u's dtype, dstate float32)."""
+    b, t, h, n = r.shape
+    f32 = torch.float32
+    tp = max(-(-t // chunk), 1) * chunk
+    lay = lambda z: z.permute(0, 3, 1, 2, 4)          # noqa: E731
+    rs, ks, vs, dys = (lay(chunks(z.float(), tp, chunk))
+                       for z in (r, k, v, dy))         # [B, H, nc, L, N]
+    ws = lay(chunks(w.float(), tp, chunk, 1.0))
+    u_ = u.float()[None, :, None, :]                   # [1, H, 1, N]
+    ds = (torch.zeros_like(states[0]) if dstate_out is None
+          else dstate_out.float())
+    lo = torch.ones(chunk, chunk, dtype=torch.bool,
+                    device=r.device).tril(-1)          # [t, s]: s < t
+    outs = {key: [] for key in ("dr", "dk", "dv", "dw")}
+    du = torch.zeros(h, n, dtype=f32, device=r.device)
+    for c in range(tp // chunk - 1, -1, -1):
+        rc, kc, vc, wc, dyc = (z[:, :, c] for z in (rs, ks, vs, ws, dys))
+        s0 = states[c].float()
+        # Dsp[t, s] = prod_{s < i < t} w_i: for each s a running product
+        # over i of (w_i if i > s else 1), read one step late
+        idx = torch.arange(chunk, device=r.device)
+        fac = torch.where((idx[None, :] > idx[:, None])[None, None, :, :,
+                                                        None],
+                          wc[:, :, None], torch.ones((), device=r.device))
+        dsp = _excl_cumprod(fac, 3).transpose(2, 3)    # [B, H, t, s, N]
+        dsp = dsp * lo[None, None, :, :, None]
+        dpre = _excl_cumprod(wc, 2)
+        dpost = torch.flip(_excl_cumprod(torch.flip(wc, [2]), 2), [2])
+        etot = dpre[:, :, -1] * wc[:, :, -1]
+        pm = torch.einsum("bhti,bhsi->bhts", dyc, vc)
+        x = torch.einsum("bhti,bhji->bhtj", dyc, s0)
+        y = torch.einsum("bhsi,bhji->bhsj", vc, ds)
+        pd = torch.diagonal(pm, 0, 2, 3)[..., None]    # [B, H, L, 1]
+        bonus = (rc * u_ * kc).sum(-1, keepdim=True)
+        att = torch.einsum("bhtj,bhsj,bhtsj->bhts", rc, kc, dsp)
+        outs["dv"].append(
+            torch.einsum("bhsj,bhji->bhsi", kc * dpost, ds)
+            + torch.einsum("bhts,bhti->bhsi", att, dyc) + bonus * dyc)
+        outs["dr"].append(dpre * x
+                          + torch.einsum("bhts,bhsj,bhtsj->bhtj", pm, kc, dsp)
+                          + u_ * kc * pd)
+        outs["dk"].append(dpost * y
+                          + torch.einsum("bhts,bhtj,bhtsj->bhsj", pm, rc, dsp)
+                          + rc * u_ * pd)
+        a = (s0 * ds).sum(-1)[:, :, None]               # [B, H, 1, N]
+        z = torch.einsum("bhutj,bhuj,bhuj->bhtj", dsp, rc, x)
+        uu = torch.einsum("bhtsj,bhsj,bhsj->bhtj", dsp, kc, y)
+        m = torch.einsum("bhtsj,bhsj,bhus->bhtuj", dsp, kc, pm)
+        q = torch.einsum("bhutj,bhuj,bhtuj->bhtj", dsp, rc, m)
+        outs["dw"].append(dpre * dpost * a + dpre * z + dpost * uu + q)
+        du = du + (rc * kc * pd).sum((0, 2))
+        ds = etot[..., None] * ds + torch.einsum("bhtj,bhti->bhji",
+                                                 rc * dpre, dyc)
+    res = []
+    for key in ("dr", "dk", "dv", "dw"):
+        g = torch.stack(outs[key][::-1], 2)             # [B, H, nc, L, N]
+        g = g.permute(0, 2, 3, 1, 4).reshape(b, tp, h, n)[:, :t]
+        res.append(g if key == "dw" else g.to(r.dtype))
+    return (*res, du.to(u.dtype), ds)

@@ -26,7 +26,8 @@ def _loss_fn(cfg: ModelConfig):
     if fn is None:
         raise NotImplementedError(
             f"the port has no loss for the {cfg.family!r} family yet "
-            "(training covers the dense family)")
+            "(training covers the dense, rwkv6, zamba2, vlm and whisper "
+            "families)")
     return fn
 
 

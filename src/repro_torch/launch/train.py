@@ -12,7 +12,11 @@ the kernels' plain versions):
 
 AdamW or Lion; MiniCPM pairs with WSD (its paper's schedule), the others
 with cosine; gradients clipped to a global norm of 1.0.  The family's
-``init(cfg, seed=0, device=...)`` gives the weights.
+``init(cfg, seed=0, device=...)`` gives the weights.  Every family but the
+MoE trains (dense, rwkv6, zamba2, vlm, whisper): the data pipeline's
+batches carry the VLM's ``patches`` (``--seq`` counts the patches and the
+text) and Whisper's ``frames`` (``enc_seq`` of them; ``--seq`` is the
+decoder's length).
 """
 from __future__ import annotations
 
@@ -44,6 +48,10 @@ def build(arch: str, smoke: bool, batch: int, seq: int, lr: float,
     """``(cfg, step_fn, params, opt_state, data_cfg)`` on ``device``
     (``cuda:0`` by default)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family == "vlm" and seq <= cfg.n_patches:
+        raise ValueError(f"{cfg.name}: seq ({seq}) counts the "
+                         f"{cfg.n_patches} image patches and the text; "
+                         "it must exceed the patches")
     fam = get_family(cfg)
     opt = {"adamw": adamw, "lion": lion}[optimizer]()
     step_fn = make_train_step(cfg, opt, schedule(arch, lr, steps))

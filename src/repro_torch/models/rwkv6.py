@@ -10,7 +10,8 @@ State per layer: the WKV state ``[B, H, N, N]`` float32 and two
 token-shift slots ``[B, D]`` (time mix and channel mix).  Decode is O(1)
 in the context length.  Every sequence and decode step runs the WKV6 kernel
 (K5) through ``kernels.rwkv6_scan.ops.wkv6``: the CUDA kernel on CUDA
-tensors, its plain version on the CPU.
+tensors, its plain version on the CPU; under grad its autograd Function,
+whose backward is ``csrc/rwkv6_chunk_bwd.cu``.  ``loss_fn`` trains it.
 
 The family has no ``prefill_fn`` / ``step_fn``: MCTS decode takes the
 generic fallback of ``models.base`` (a full forward per step), and the
@@ -182,10 +183,19 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
 
 
 def _run(cfg: ModelConfig, params, x, state):
+    """The blocks in order.  Under grad mode with ``cfg.remat`` each block
+    runs in ``torch.utils.checkpoint`` (non-reentrant): only its input is
+    kept and the backward recomputes it, so K5's forward runs twice a
+    layer and its backward once (the JAX ``_run``'s
+    ``jax.checkpoint(nothing_saveable)``)."""
+    from torch.utils.checkpoint import checkpoint
+    remat = cfg.remat and torch.is_grad_enabled()
     outs = {k: [] for k in _STATE_KEYS}
     for i in range(cfg.n_layers):
-        x, st = _block_seq(cfg, layer_params(params, i), x,
-                           {k: state[k][i] for k in _STATE_KEYS})
+        args = (cfg, layer_params(params, i), x,
+                {k: state[k][i] for k in _STATE_KEYS})
+        x, st = checkpoint(_block_seq, *args, use_reentrant=False) \
+            if remat else _block_seq(*args)
         for k in _STATE_KEYS:
             outs[k].append(st[k])
     return x, {k: torch.stack(v) for k, v in outs.items()}
@@ -201,6 +211,15 @@ def hidden_states(cfg: ModelConfig, params, tokens, state=None):
     x, new_states = _run(cfg, params, x, state)
     return L.layernorm(x, params["final_norm"]["scale"],
                        params["final_norm"]["bias"]), new_states
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``, each ``[B, S]``) -> ``(loss, {"loss": loss})``."""
+    x, _ = hidden_states(cfg, params, batch["tokens"])
+    loss = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                  batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens):

@@ -4,9 +4,10 @@ The PyTorch counterpart of ``repro.models.vlm``.  The vision tower is a
 stub: callers pass precomputed patch features ``[B, n_patches,
 frontend_dim]`` (InternViT outputs).  This module owns the LM-side pieces:
 the 2-layer MLP projector ("mlp1") and the InternLM2 decoder backbone (the
-dense family).  Inference delegates to the dense backbone; as in the JAX
-package there is no ``prefill_fn`` / ``step_fn``, so MCTS decode takes the
-generic fallback of ``models.base``.
+dense family).  ``loss_fn`` trains both, the image positions masked.
+Inference delegates to the dense backbone; as in the JAX package there is
+no ``prefill_fn`` / ``step_fn``, so MCTS decode takes the generic
+fallback of ``models.base``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,29 @@ def multimodal_embeds(cfg: ModelConfig, params, patches, tokens):
     img = project_patches(cfg, params, patches)              # [B, P, D]
     txt = L.embed_tokens(cfg, params["embed"], tokens)       # [B, St, D]
     return torch.cat([img, txt], 1)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy over the text positions of
+    ``batch``: ``patches [B, P, fd]`` (in the model's dtype), ``tokens [B,
+    St]``, ``labels [B, P + St]`` (the image positions' masked out unless
+    ``mask`` says otherwise) -> ``(loss, {"loss": loss})``.  The
+    projector ("mlp1") and the backbone get their gradients; the backbone
+    runs ``transformer.hidden_states`` (remat per block)."""
+    patches = batch["patches"].to(cfg.jdtype)
+    embeds = multimodal_embeds(cfg, params, patches, batch["tokens"])
+    x = dense.hidden_states(cfg, params, inputs_embeds=embeds)
+    n_img = patches.shape[1]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.cat([
+            torch.zeros((x.shape[0], n_img), dtype=torch.float32,
+                        device=x.device),
+            torch.ones((x.shape[0], x.shape[1] - n_img),
+                       dtype=torch.float32, device=x.device)], 1)
+    loss = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                  mask)
+    return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens):

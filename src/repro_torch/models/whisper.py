@@ -91,18 +91,33 @@ def _sinusoid(length: int, d: int, dtype, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
+def _enc_block(cfg: ModelConfig, lp, x):
+    b, s, _ = x.shape
+    h = _layernorm(x, lp["ln1"])
+    q, k, v = L.gqa_project_qkv(cfg, lp["attn"], h)
+    a = L.attention(cfg, q, k, v, causal=False)
+    x = x + a.reshape(b, s, -1) @ lp["attn"]["wo"]
+    h = _layernorm(x, lp["ln2"])
+    return x + L.apply_mlp(cfg, lp["mlp"], h)
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether the blocks run in ``torch.utils.checkpoint``: under grad
+    mode with ``cfg.remat``, as the JAX ``encode`` / ``decode_states``
+    checkpoint their scan bodies."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
 def encode(cfg: ModelConfig, params, frames):
     """frames ``[B, enc_seq, D]`` (stub conv output) -> encoder states."""
+    from torch.utils.checkpoint import checkpoint
     b, s, d = frames.shape
     x = frames + _sinusoid(s, d, frames.dtype, frames.device)[None]
+    remat = _remat(cfg)
     for i in range(cfg.n_enc_layers):
         lp = _layer(params, "enc_layers", i)
-        h = _layernorm(x, lp["ln1"])
-        q, k, v = L.gqa_project_qkv(cfg, lp["attn"], h)
-        a = L.attention(cfg, q, k, v, causal=False)
-        x = x + a.reshape(b, s, -1) @ lp["attn"]["wo"]
-        h = _layernorm(x, lp["ln2"])
-        x = x + L.apply_mlp(cfg, lp["mlp"], h)
+        x = checkpoint(_enc_block, cfg, lp, x, use_reentrant=False) \
+            if remat else _enc_block(cfg, lp, x)
     return _layernorm(x, params["ln_enc"])
 
 
@@ -162,15 +177,35 @@ def _embed_dec(params, tokens, positions):
         + params["pos_dec"][positions.long()]
 
 
+def _dec_block_out(cfg: ModelConfig, lp, x, enc):
+    return _dec_block(cfg, lp, x, enc)[0]
+
+
 def decode_states(cfg: ModelConfig, params, tokens, enc, positions=None):
+    from torch.utils.checkpoint import checkpoint
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     x = _embed_dec(params, tokens, positions)
+    remat = _remat(cfg)
     for i in range(cfg.n_layers):
-        x, _, _ = _dec_block(cfg, _layer(params, "dec_layers", i), x,
-                             enc)
+        lp = _layer(params, "dec_layers", i)
+        x = checkpoint(_dec_block_out, cfg, lp, x, enc, use_reentrant=False) \
+            if remat else _dec_block_out(cfg, lp, x, enc)
     return _layernorm(x, params["ln_dec"])
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy of ``batch`` (``frames [B, enc_seq,
+    D]`` in the model's dtype, ``tokens``, ``labels``, optional ``mask``)
+    -> ``(loss, {"loss": loss})``; tied head.  Under grad the encoder's and
+    the cross attention's K4 run non-causal through
+    ``layers.blocked_attention`` (kernels A / B), the decoder's causal."""
+    enc = encode(cfg, params, batch["frames"].to(cfg.jdtype))
+    x = decode_states(cfg, params, batch["tokens"], enc)
+    loss = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                  batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens, frames):

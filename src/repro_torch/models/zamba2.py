@@ -18,7 +18,9 @@ loops take the place of ``lax.scan``.  ``prefill`` and ``decode_step``
 write the shared block's K/V rows into ``cache["k"]`` / ``cache["v"]`` IN
 PLACE and return those tensors in the new cache.  The family has no
 ``prefill_fn`` / ``step_fn``: MCTS decode takes the generic fallback of
-``models.base``.
+``models.base``.  ``loss_fn`` trains it: under grad K6 runs its autograd
+Function (backward ``csrc/ssm_chunk_bwd.cu``) and the shared attention
+``layers.blocked_attention`` (kernels A / B).
 """
 from __future__ import annotations
 
@@ -232,13 +234,21 @@ def _run(cfg: ModelConfig, params, x, emb0, states, *, positions,
          shared_caches=None, pos=None, kv_valid_len=None):
     """states: stacked Mamba states; shared_caches: {k, v} ``[n_apps,
     ...]`` or None.  Returns (x, new stacked states, per-application
-    K/V)."""
+    K/V).  Under grad mode with ``cfg.remat`` each Mamba block of a
+    segment runs in ``torch.utils.checkpoint`` (non-reentrant), as the JAX
+    ``_run``'s segment scan checkpoints its body: K6's forward runs twice
+    a block and its backward once; the shared attention is not
+    checkpointed."""
+    from torch.utils.checkpoint import checkpoint
+    remat = cfg.remat and torch.is_grad_enabled()
     new_states = {"conv": [], "ssd": []}
     new_shared = []
     for lo, hi, app in _segments(cfg):
         for i in range(lo, hi):
-            x, st = _mamba_block(cfg, _mamba_params(params, i), x,
-                                 {k: states[k][i] for k in new_states})
+            args = (cfg, _mamba_params(params, i), x,
+                    {k: states[k][i] for k in new_states})
+            x, st = checkpoint(_mamba_block, *args, use_reentrant=False) \
+                if remat else _mamba_block(*args)
             for k in new_states:
                 new_states[k].append(st[k])
         if app is not None:
@@ -262,6 +272,15 @@ def hidden_states(cfg: ModelConfig, params, tokens, states=None):
     x, new_states, _ = _run(cfg, params, emb0, emb0, states,
                             positions=torch.arange(s, device=tokens.device))
     return L.rmsnorm(x, params["final_norm"]["scale"]), new_states
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``, each ``[B, S]``) -> ``(loss, {"loss": loss})``."""
+    x, _ = hidden_states(cfg, params, batch["tokens"])
+    loss = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                  batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens):

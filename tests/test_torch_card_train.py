@@ -20,7 +20,18 @@ tests/test_torch_card_train.py``.
   knobs; two launches on the same inputs bit-equal (no atomics);
 * the autograd path: the smoke model's loss backed through ``attention``
   on the card gives every attention weight a gradient, equal to the plain
-  path's on the CPU within 1e-5 normwise per leaf (float32).
+  path's on the CPU within 1e-5 normwise per leaf (float32);
+* the K5 / K6 backward kernels (``csrc/rwkv6_chunk_bwd.cu``,
+  ``ssm_chunk_bwd.cu``) against ``wkv6_bwd_ref`` / ``ssd_bwd_ref`` run in
+  float32 on the same operands and the saved chunk states of the forward
+  kernel, at T not a multiple of 64 with a non-zero entering state, in
+  bf16 (the chunked forward) and float32 (the sequential one), K5 with
+  decays down to 1e-20, K6 on strided slices: normwise within the limits
+  above, a planted fault far above, two launches bit-equal;
+* the rwkv6, zamba2, VLM and Whisper smoke losses: gradients on the card
+  (the scans' Functions, kernels A / B) equal the CPU's within 1e-5
+  normwise per leaf, and each card step launches the kernels its path
+  implies.
 """
 import pytest
 
@@ -126,3 +137,97 @@ def test_attention_on_the_card_gives_gradients():
         g = grads["layers"]["attn"][name]
         assert g is not None and float(g.abs().max()) > 0
         assert normwise(g.cpu(), grads_c["layers"]["attn"][name]) <= 1e-5
+
+
+SCAN_SHAPES = [   # kind, b, t, h, n (K5) or p (K6), n (K6), dtype
+    ("wkv6", 2, 130, 4, 64, None, torch.bfloat16),
+    ("wkv6", 2, 130, 4, 64, None, torch.float32),
+    ("wkv6", 1, 70, 3, 8, None, torch.float32),
+    ("ssd", 2, 130, 4, 64, 64, torch.bfloat16),
+    ("ssd", 2, 130, 4, 64, 64, torch.float32),
+    ("ssd", 1, 70, 3, 8, 5, torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=lambda s: "x".join(
+    str(x) for x in s[:6] if x is not None) + "-" + str(s[6])[6:])
+def test_scan_backward_kernels_match_plain(shape):
+    import torch.nn.functional as F
+    from repro_torch.kernels.rwkv6_scan import ops as twk
+    from repro_torch.kernels.ssm_scan import ops as tss
+    dev = _card()
+    kind, b, t, h, c, n, dt = shape
+    gen = torch.Generator(dev).manual_seed(3)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa
+    if kind == "wkv6":
+        w = torch.exp(-torch.exp(rnd(b, t, h, c)))
+        w[:, 3:9] = 1e-20
+        args = ((rnd(b, t, h, c).to(dt), rnd(b, t, h, c).to(dt),
+                 rnd(b, t, h, c).to(dt), w, rnd(h, c).to(dt)),
+                rnd(b, h, c, c))
+        mod, plain, sd = twk, twk.R.wkv6_bwd_ref, (b, h, c, c)
+    else:
+        xbc = rnd(b, t, h * c + 2 * n).to(dt)
+        args = ((xbc[..., :h * c].reshape(b, t, h, c),
+                 F.softplus(rnd(b, t, h) - 1), -torch.exp(0.5 * rnd(h)),
+                 xbc[..., h * c:h * c + n], xbc[..., h * c + n:], rnd(h)),
+                rnd(b, h, c, n))
+        mod, plain, sd = tss, tss.R.ssd_bwd_ref, (b, h, c, n)
+    ops_in, s0 = args
+    dy, ds = rnd(b, t, h, c).to(dt), rnd(*sd)
+    _, _, states = mod._forward(*ops_in, s0, keep=True)
+    got = mod.launch_bwd(*ops_in, states, dy, ds)
+    again = mod.launch_bwd(*ops_in, states, dy, ds)
+    want = plain(*(z.float() for z in ops_in), states, dy.float(), ds)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert normwise(g, w_) <= GRAD_TOL[dt]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bad = got[1].clone()
+    bad[:, :, 0] = 0
+    assert normwise(bad, want[1]) > 10 * GRAD_TOL[dt]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
+                                  "internvl2-2b", "whisper-base"])
+def test_family_losses_on_the_card_match_the_cpu(arch):
+    dev = _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels.rwkv6_scan import ops as twk
+    from repro_torch.kernels.ssm_scan import ops as tss
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.base import get_family, tree_to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    fam = get_family(cfg)
+    params = fam.init(cfg, seed=0, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in synthetic_batch(
+        cfg, DataConfig(batch_size=2, seq_len=40), 0).items()}
+    counters = (tfa.launches, twk.launches, tss.launches)
+    before = [dict(c) for c in counters]
+    (loss, _), grads = value_and_grad(
+        lambda p: fam.loss_fn(cfg, p, tree_to(batch, dev)),
+        tree_to(params, dev))
+    torch.cuda.synchronize()
+    moved = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c
+             if c[k] != b[k]}
+    bwd = {"rwkv6": "wkv6_bwd", "zamba2": "ssd_bwd"}.get(
+        cfg.family, "flash_attention_bwd")
+    assert moved.get(bwd, 0) > 0
+    (loss_c, _), grads_c = value_and_grad(
+        lambda p: fam.loss_fn(cfg, p, batch), params)
+    assert abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+
+    def leaves(t, path=()):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], path + (k,))
+        else:
+            yield path, t
+    for (path, g), (_, gc) in zip(leaves(grads), leaves(grads_c)):
+        if path[-1] == "bk":          # an exactly zero gradient: noise
+            continue
+        if float(gc.abs().max()) > 0:
+            assert normwise(g.cpu(), gc) <= 1e-5, path

@@ -170,7 +170,8 @@ def test_chunked_softmax_xent_matches_jax(tie, scale, chunk, masked):
 
 
 # ---------------------------------------------------------------------------
-# kernels with no backward refuse to run under grad on the card
+# kernels with no backward refuse to run under grad on the card; K5 / K6
+# take their autograd Functions
 # ---------------------------------------------------------------------------
 def _kernel_call(which, grad):
     from repro_torch.kernels.decode_attention import ops as tda
@@ -190,17 +191,37 @@ def _kernel_call(which, grad):
     if which == "k5":
         return lambda: twk.wkv6(g(1, 4, 2, 8), g(1, 4, 2, 8), g(1, 4, 2, 8),
                                 g(1, 4, 2, 8), g(2, 8), r(1, 2, 8, 8))
-    return lambda: tss.ssd(g(1, 4, 2, 8), g(1, 4, 2), g(2), g(1, 4, 1, 4),
-                           g(1, 4, 1, 4), g(2), r(1, 2, 8, 4))
+    return lambda: tss.ssd(g(1, 4, 2, 8), g(1, 4, 2), g(2), g(1, 4, 4),
+                           g(1, 4, 4), g(2), r(1, 2, 8, 4))
 
 
 @pytest.mark.parametrize("which", ["k4", "k3", "k5", "k6"])
 def test_kernels_without_backward_raise_under_grad(monkeypatch, which):
-    """The CUDA path (``impl="cuda"`` forced at the dispatch, CPU tensors)
-    raises before any launch when an input requires grad, rather than
-    return a result with no ``grad_fn``."""
+    """The CUDA path (``impl="cuda"`` forced at the dispatch, CPU tensors).
+    K4 and K3 have no backward: they raise before any launch when an input
+    requires grad, rather than return a result with no ``grad_fn``.  K5
+    and K6 have one (``csrc/rwkv6_chunk_bwd.cu``, ``ssm_chunk_bwd.cu``):
+    under grad they go through their autograd Function, on to the
+    forward's launch (which fails here: no nvcc, no card), and with that
+    launch stood in for by the plain version with its chunk states, the
+    output carries the Function's ``grad_fn``."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import ops as twk
+    from repro_torch.kernels.ssm_scan import ops as tss
     monkeypatch.setattr(_build, "resolve_impl", lambda impl, t: "cuda")
+    if which in ("k5", "k6"):
+        ops, plain, node = ((twk, twk.R.wkv6_fwd_ref, "_WKV6Backward")
+                            if which == "k5" else
+                            (tss, tss.R.ssd_fwd_ref, "_SSDBackward"))
+        with pytest.raises(Exception) as err:
+            _kernel_call(which, grad=True)()   # goes on to the launch
+        assert "has no backward" not in str(err.value)
+        monkeypatch.setattr(ops, "_forward",
+                            lambda *a, keep: plain(*a) if keep else None)
+        y, _ = _kernel_call(which, grad=True)()
+        assert type(y.grad_fn).__name__ == node
+        assert y.requires_grad
+        return
     with pytest.raises(RuntimeError, match="has no backward"):
         _kernel_call(which, grad=True)()
     with torch.no_grad(), pytest.raises(Exception) as err:
