@@ -4422,10 +4422,12 @@ def phase_train_full(dev, counts: dict):
 TRAIN_FAM_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "internvl2-2b",
                    "whisper-base")
 SCAN_BWD_SOURCES = {"wkv6_bwd": "wkv6", "ssd_bwd": "ssd"}
-# (name, kind, B, T, H, N (K5) or P (K6), N (K6), dtype, strong decays):
-# the two main paths' training shapes, then T not a multiple of the 64-step
+# (name, kind, B, T, H, N (K5) or P (K6), N (K6), dtype, strong decays[,
+# K6's heads a block]): the two main paths' training shapes (zamba2's with
+# 8 heads a block, ``SS.head_group``), then T not a multiple of the 64-step
 # chunk with a non-zero entering state in both dtypes (K5 with decays down
-# to 1e-20), and float32 at small widths
+# to 1e-20; K6 also with 2 and 4 heads a block), and float32 at small
+# widths
 SCAN_BWD_CASES = (
     ("rwkv6", "wkv6", 8, 2048, 32, 64, None, "bf16", False),
     ("zamba2", "ssd", 8, 2048, 64, 64, 64, "bf16", False),
@@ -4433,7 +4435,9 @@ SCAN_BWD_CASES = (
     ("wkv6-ragged-f32", "wkv6", 2, 130, 4, 64, None, "f32", True),
     ("wkv6-n8-f32", "wkv6", 1, 70, 3, 8, None, "f32", False),
     ("ssd-ragged", "ssd", 2, 130, 4, 64, 64, "bf16", False),
+    ("ssd-ragged-g4", "ssd", 2, 130, 4, 64, 64, "bf16", False, 4),
     ("ssd-ragged-f32", "ssd", 2, 130, 4, 64, 64, "f32", False),
+    ("ssd-ragged-f32-g2", "ssd", 2, 130, 4, 64, 64, "f32", False, 2),
     ("ssd-small-f32", "ssd", 1, 70, 3, 8, 5, "f32", False))
 SCAN_BWD_NAMES = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
                   "ssd": ("dx", "ddt", "dA", "dBm", "dCm", "dD", "dstate")}
@@ -4557,7 +4561,7 @@ def scan_bwd_case(dev, spec):
     turns) at the main paths' shapes."""
     from repro_torch.kernels.rwkv6_scan import ops as WK
     from repro_torch.kernels.ssm_scan import ops as SS
-    name, kind, b, t, h, c, n, dts, strong = spec
+    name, kind, b, t, h, c, n, dts, strong = spec[:9]
     dt = torch.bfloat16 if dts == "bf16" else torch.float32
     gen = torch.Generator(dev).manual_seed(37)
     args, dy, ds = scan_bwd_inputs(kind, b, t, h, c, n, dt, strong, dev, gen)
@@ -4565,8 +4569,9 @@ def scan_bwd_case(dev, spec):
     plain = mod.R.wkv6_bwd_ref if kind == "wkv6" else mod.R.ssd_bwd_ref
     _, _, states = mod._forward(*args, keep=True)
     ops_in = args[:-1]
-    got = mod.launch_bwd(*ops_in, states, dy, ds)
-    again = mod.launch_bwd(*ops_in, states, dy, ds)
+    kw = {"group": spec[9]} if len(spec) > 9 else {}
+    got = mod.launch_bwd(*ops_in, states, dy, ds, **kw)
+    again = mod.launch_bwd(*ops_in, states, dy, ds, **kw)
     want = plain(*(z.float() for z in ops_in), states, dy.float(), ds)
     torch.cuda.synchronize()
     tol = SCAN_BWD_TOL[dts]
@@ -4585,6 +4590,8 @@ def scan_bwd_case(dev, spec):
              "on the same inputs differ")
     res = {"kind": kind, "shape": [b, t, h, c] + ([n] if n else []),
            "dtype": dts, "strong_decays": strong, "grad_normwise": errs,
+           "heads_a_block": (kw.get("group") or SS.head_group(
+               b, h, -(-t // SS.CHUNK))) if kind == "ssd" else 1,
            "planted": planted,
            "max_abs_err": max(max_diff(g, w) for g, w in zip(got, want)),
            "bound": scan_bwd_bound(kind, (*ops_in, states, dy, ds), got)}
@@ -4604,7 +4611,14 @@ def phase_train_scan_kernels(dev):
     carry rwkv6-1.6b's / zamba2-1.2b's training shape and the largest
     error of every case.  Returns those rows (less their launches) and the
     cases."""
+    from repro_torch.kernels.rwkv6_scan import ops as WK
+    from repro_torch.kernels.ssm_scan import ops as SS
     cases = {spec[0]: scan_bwd_case(dev, spec) for spec in SCAN_BWD_CASES}
+    occ = {k: [m.bwd_occupancy(d) for d in (torch.bfloat16, torch.float32)]
+           for k, m in (("wkv6_bwd", WK), ("ssd_bwd", SS))}
+    if min(occ[k][0][0] for k in occ) < 2:
+        fail(f"train-kernels-scan: a backward kernel keeps fewer than two "
+             f"blocks an SM in bf16: {occ}")
     rows = {}
     for key, kind in SCAN_BWD_SOURCES.items():
         t = cases["rwkv6" if kind == "wkv6" else "zamba2"]
@@ -4615,6 +4629,8 @@ def phase_train_scan_kernels(dev):
     say("train-kernels-scan " + "; ".join(
         f"{nm} {c['kind']} {c['dtype']} {c['shape']}"
         + (" decays to 1e-20" if c["strong_decays"] else "")
+        + (f" {c['heads_a_block']} heads a block"
+           if c["heads_a_block"] > 1 else "")
         + ": normwise " + ",".join(f"{g}={e:.2e}"
                                    for g, e in c["grad_normwise"].items())
         + f" (planted {c['planted']:.2e}; limit "
@@ -4624,7 +4640,10 @@ def phase_train_scan_kernels(dev):
            if "ms" in c else "")
         for nm, c in cases.items())
         + f"; host_us wkv6_bwd={HOST['wkv6_bwd']:.1f} "
-        f"ssd_bwd={HOST['ssd_bwd']:.1f}")
+        f"ssd_bwd={HOST['ssd_bwd']:.1f}; resident blocks an SM (shared "
+        "bytes) bf16 / float32: " + ", ".join(
+            f"{k} " + " / ".join("%d (%d)" % occ[k][d] for d in (0, 1))
+            for k in occ))
     return rows, cases
 
 

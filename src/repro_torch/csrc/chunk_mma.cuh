@@ -1,8 +1,9 @@
-// Shared pieces of the chunked scan kernels (ssm_chunk.cu, rwkv6_chunk.cu):
-// warp-level bf16 tensor-core products (mma.sync m16n8k16, float32
-// accumulation) on 64 x 64 tiles in shared memory, the three-piece split
-// of float32 operands, and the flags that carry a state from one chunk's
-// block to the next.
+// Shared pieces of the chunked scan kernels (ssm_chunk.cu, rwkv6_chunk.cu)
+// and their backward (ssm_chunk_bwd.cu, rwkv6_chunk_bwd.cu): warp-level
+// bf16 tensor-core products (mma.sync m16n8k16, float32 accumulation) on
+// 64 x 64 tiles in shared memory, the three-piece split of float32
+// operands, and the flags that carry a state from one chunk's block to the
+// next.
 //
 // Fragments (PTX ISA, mma.m16n8k16 .bf16): lane l, g = l / 4, c = l % 4.
 //   A (16 x 16, row-major): a0 (row g, cols 2c, 2c+1), a1 (row g+8),
@@ -31,16 +32,40 @@
 
 // Phase marks: built with -DCHUNK_PROF, thread 0 of each of the first
 // 4096 blocks writes the global timer at mark k after a barrier, and
-// chunk_prof_read copies the marks out; otherwise a mark is nothing.
+// chunk_prof_read copies the marks out; otherwise a mark is nothing.  The
+// backward kernels, whose phases repeat (a block of ssm_chunk_bwd.cu takes
+// several heads), sum each phase's time instead: CHUNK_PHASE_START sets
+// slot 0 (and the running mark, slot 15) to the timer and zeroes the
+// rest; CHUNK_PHASE(k) adds the time since the last phase mark to slot k.
 #ifdef CHUNK_PROF
 __device__ long long chunk_prof[4096][16];
+__device__ __forceinline__ long long chunk_timer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 #define CHUNK_MARK(k)                                                     \
   do {                                                                    \
     __syncthreads();                                                      \
+    if (threadIdx.x == 0 && blockIdx.x < 4096)                            \
+      chunk_prof[blockIdx.x][k] = chunk_timer();                          \
+  } while (0)
+#define CHUNK_PHASE_START                                                 \
+  do {                                                                    \
+    __syncthreads();                                                      \
     if (threadIdx.x == 0 && blockIdx.x < 4096) {                          \
-      long long t_;                                                       \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));              \
-      chunk_prof[blockIdx.x][k] = t_;                                     \
+      const long long t_ = chunk_timer();                                 \
+      for (int k_ = 1; k_ < 15; ++k_) chunk_prof[blockIdx.x][k_] = 0;     \
+      chunk_prof[blockIdx.x][0] = chunk_prof[blockIdx.x][15] = t_;        \
+    }                                                                     \
+  } while (0)
+#define CHUNK_PHASE(k)                                                    \
+  do {                                                                    \
+    __syncthreads();                                                      \
+    if (threadIdx.x == 0 && blockIdx.x < 4096) {                          \
+      const long long t_ = chunk_timer();                                 \
+      chunk_prof[blockIdx.x][k] += t_ - chunk_prof[blockIdx.x][15];       \
+      chunk_prof[blockIdx.x][15] = t_;                                    \
     }                                                                     \
   } while (0)
 extern "C" int chunk_prof_read(long long* host) {
@@ -49,6 +74,12 @@ extern "C" int chunk_prof_read(long long* host) {
 #else
 #define CHUNK_MARK(k) \
   do {                \
+  } while (0)
+#define CHUNK_PHASE_START \
+  do {                    \
+  } while (0)
+#define CHUNK_PHASE(k) \
+  do {                 \
   } while (0)
 #endif
 
@@ -218,11 +249,11 @@ __device__ __forceinline__ void raise_flag(int* f) {
 
 // ---------------------------------------------------------------------
 // The backward kernels' pieces (rwkv6_chunk_bwd.cu, ssm_chunk_bwd.cu).
-// Float tiles there are [64][LD] with a padded row, read through getters.
-
-constexpr int LD = L + 1;              // padded float row
-constexpr int FT = L * LD;             // floats per padded tile
-__device__ __forceinline__ int ti(int r, int c) { return r * LD + c; }
+// Their tiles are bf16 (the bf16 route's inputs) or float32 (the float32
+// route's inputs, and sums, states and decays), both in the swizzled
+// layout above, and a product takes the fewest mma that keep float32 sums:
+// one for two bf16 tiles, three where one operand is float32 (split in
+// three pieces), six where both are.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -235,35 +266,209 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
   return __float2bfloat16(x);
 }
+// (a, b) to dst[0], dst[1]; dst[1] only when it is in (two == true)
+__device__ __forceinline__ void store2(float* dst, bool two, float a,
+                                       float b) {
+  if (two && !(reinterpret_cast<uintptr_t>(dst) & 7))
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  else {
+    dst[0] = a;
+    if (two) dst[1] = b;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, bool two, float a,
+                                       float b) {
+  if (two && !(reinterpret_cast<uintptr_t>(dst) & 3))
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  else {
+    dst[0] = __float2bfloat16(a);
+    if (two) dst[1] = __float2bfloat16(b);
+  }
+}
 
-// acc (a 16 x 32 block at rows m0.., cols n0.. of a 64 x 64 product) +=
-// sum_{k < 64} A(m, k) B(k, n), both operands float32 read through the
-// getters ga(m, k), gb(k, n) and split into three bf16 pieces each (six
-// mma per tile, as in the forward kernels: float32 accuracy on the tensor
-// cores).  acc[jn][e] is element (m0 + g + 8 (e / 2), n0 + 8 jn + 2 (lane %
-// 4) + e % 2) with g = lane / 4.
-template <class GA, class GB>
-__device__ __forceinline__ void mm6(float (&acc)[4][4], int m0, int n0,
-                                    int lane, GA ga, GB gb) {
-  const int g = lane >> 2, cq = (lane & 3) * 2;
-#pragma unroll 1
-  for (int k0 = 0; k0 < L; k0 += 16) {
-    uint32_t a3[3][4];
-    a_split(a3, m0, k0, lane, [&](int rr, int c) {
-      return make_float2(ga(rr, c), ga(rr, c + 1));
-    });
+// bf16 pieces of an operand of type T
+template <typename T> struct Pieces { static constexpr int n = 3; };
+template <> struct Pieces<__nv_bfloat16> { static constexpr int n = 1; };
+
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+// one float (zero when !in), without waiting for it
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+// a [64][64] tile of T from rows src + r * stride (r < rows, columns c <
+// cols; zeros elsewhere): 16-byte cp.async when vec (src and stride
+// 16-byte aligned; the caller waits), else element loads
+template <typename T, int NT>
+__device__ __forceinline__ void load_tile(T* tile, const T* src,
+                                          long long stride, int rows,
+                                          int cols, bool vec) {
+  if (vec) {
+    constexpr int per = 16 / sizeof(T), cpr = L / per;
+    for (int e = threadIdx.x; e < L * cpr; e += NT) {
+      const int r = e / cpr, c = (e % cpr) * per;
+      const int nb = r < rows ? min(max(cols - c, 0), per) * (int)sizeof(T)
+                              : 0;
+      cp_async_n(tile + bi(r, c), nb ? src + r * stride + c : src, nb);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TILE; e += NT) {
+      const int r = e >> 6, c = e & 63;
+      tile[bi(r, c)] = r < rows && c < cols ? src[r * stride + c]
+                                            : from_f<T>(0.0f);
+    }
+  }
+}
+
+// the 8 values at (r, c .. c + 7) of a tile (c a multiple of 8: one
+// 16-byte chunk of a bf16 row, two of a float32 row) as floats
+__device__ __forceinline__ void ld8(float* o, const __nv_bfloat16* t, int r,
+                                    int c) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(t + bi(r, c));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const int nn = n0 + 8 * jn + g;
-      uint32_t b0[3], b1[3];
-      split3(gb(k0 + cq, nn), gb(k0 + cq + 1, nn), b0[0], b0[1], b0[2]);
-      split3(gb(k0 + cq + 8, nn), gb(k0 + cq + 9, nn), b1[0], b1[1], b1[2]);
-      mma(acc[jn], a3[0], b0[0], b1[0]);
-      mma(acc[jn], a3[0], b0[1], b1[1]);
-      mma(acc[jn], a3[1], b0[0], b1[0]);
-      mma(acc[jn], a3[0], b0[2], b1[2]);
-      mma(acc[jn], a3[2], b0[0], b1[0]);
-      mma(acc[jn], a3[1], b0[1], b1[1]);
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    o[2 * e] = f.x;
+    o[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void ld8(float* o, const float* t, int r,
+                                    int c) {
+  const float4 a = *reinterpret_cast<const float4*>(t + fi(r, c));
+  const float4 b = *reinterpret_cast<const float4*>(t + fi(r, c) + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ float2 f2at(const float* t, int r, int c) {
+  return *reinterpret_cast<const float2*>(t + fi(r, c));
+}
+// B fragments (hi, mid, lo) of the n tiles n0, n0 + 8 (k rows k0..):
+// b[q][0..1] tile n0, b[q][2..3] tile n0 + 8; get(k, n) returns the float2
+// at (k, n), (k + 1, n)
+template <typename Get>
+__device__ __forceinline__ void b_split(uint32_t b[3][4], int n0, int k0,
+                                        int lane, Get get) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+  for (int jt = 0; jt < 2; ++jt) {
+    const float2 v0 = get(k0 + c, n0 + 8 * jt + g);
+    const float2 v1 = get(k0 + c + 8, n0 + 8 * jt + g);
+    split3(v0.x, v0.y, b[0][2 * jt], b[1][2 * jt], b[2][2 * jt]);
+    split3(v1.x, v1.y, b[0][2 * jt + 1], b[1][2 * jt + 1],
+           b[2][2 * jt + 1]);
+  }
+}
+
+// B fragments as b_split's in P pieces: three, or one with each pair
+// rounded to bf16 (a float32 operand of a product that only feeds a bf16
+// result)
+template <int P, typename Get>
+__device__ __forceinline__ void b_pieces(uint32_t (&b)[P][4], int n0, int k0,
+                                         int lane, Get get) {
+  if constexpr (P == 3) {
+    b_split(b, n0, k0, lane, get);
+  } else {
+    const int g = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+    for (int jt = 0; jt < 2; ++jt) {
+      const float2 v0 = get(k0 + c, n0 + 8 * jt + g);
+      const float2 v1 = get(k0 + c + 8, n0 + 8 * jt + g);
+      b[0][2 * jt] = pack(__floats2bfloat162_rn(v0.x, v0.y));
+      b[0][2 * jt + 1] = pack(__floats2bfloat162_rn(v1.x, v1.y));
+    }
+  }
+}
+
+// A fragments of rows m0.., k cols k0.. of a tile stored [m][k] ...
+__device__ __forceinline__ void frag_a(uint32_t (&a)[1][4],
+                                       const __nv_bfloat16* t, int m0,
+                                       int k0, int lane) {
+  ldsm_x4(a[0], a_addr(t, m0, k0, lane));
+}
+__device__ __forceinline__ void frag_a(uint32_t (&a)[3][4], const float* t,
+                                       int m0, int k0, int lane) {
+  a_split(a, m0, k0, lane, [&](int r, int c) { return f2at(t, r, c); });
+}
+// ... of a float32 tile stored [k][m]
+__device__ __forceinline__ void frag_at(uint32_t (&a)[3][4], const float* t,
+                                        int m0, int k0, int lane) {
+  a_split(a, m0, k0, lane, [&](int r, int c) {
+    return make_float2(t[fi(c, r)], t[fi(c + 1, r)]);
+  });
+}
+// B fragments of the n tiles n0, n0 + 8, k rows k0.., of a tile stored
+// [n][k] ...
+__device__ __forceinline__ void frag_b(uint32_t (&b)[1][4],
+                                       const __nv_bfloat16* t, int n0,
+                                       int k0, int lane) {
+  ldsm_x4(b[0], b_addr(t, n0, k0, lane));
+}
+__device__ __forceinline__ void frag_b(uint32_t (&b)[3][4], const float* t,
+                                       int n0, int k0, int lane) {
+  b_split(b, n0, k0, lane, [&](int k, int n) { return f2at(t, n, k); });
+}
+// ... stored [k][n]
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[1][4],
+                                        const __nv_bfloat16* t, int n0,
+                                        int k0, int lane) {
+  ldsm_x4_t(b[0], bt_addr(t, n0, k0, lane));
+}
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[3][4], const float* t,
+                                        int n0, int k0, int lane) {
+  b_split(b, n0, k0, lane, [&](int k, int n) {
+    return make_float2(t[fi(k, n)], t[fi(k + 1, n)]);
+  });
+}
+
+// d += A B for one n tile (o = 0: tile n0, o = 2: tile n0 + 8), operands
+// in PA and PB pieces: the products of pieces down to 2^-24 of the result
+template <int PA, int PB>
+__device__ __forceinline__ void mma_p(float d[4], const uint32_t (&a)[PA][4],
+                                      const uint32_t (&b)[PB][4], int o) {
+  if constexpr (PA == 1 && PB == 1) {
+    mma(d, a[0], b[0][o], b[0][o + 1]);
+  } else if constexpr (PB == 1) {
+#pragma unroll
+    for (int q = PA - 1; q >= 0; --q) mma(d, a[q], b[0][o], b[0][o + 1]);
+  } else if constexpr (PA == 1) {
+#pragma unroll
+    for (int q = PB - 1; q >= 0; --q) mma(d, a[0], b[q][o], b[q][o + 1]);
+  } else {
+    mma(d, a[1], b[1][o], b[1][o + 1]);
+    mma(d, a[2], b[0][o], b[0][o + 1]);
+    mma(d, a[0], b[2][o], b[2][o + 1]);
+    mma(d, a[1], b[0][o], b[0][o + 1]);
+    mma(d, a[0], b[1][o], b[1][o + 1]);
+    mma(d, a[0], b[0][o], b[0][o + 1]);
+  }
+}
+
+// acc (rows m0.., cols n0 .. n0 + 31 as four n tiles of 8) += sum over the
+// k steps k0 = k_lo, k_lo + 16, .. < k_hi of A B; fa(a, k0) gives the A
+// fragments, fb(b, k0, nn) the B fragments of the tiles nn, nn + 8.
+// acc[jn][e] is element (m0 + g + 8 (e / 2), n0 + 8 jn + 2 (lane % 4) +
+// e % 2) with g = lane / 4.
+template <int PA, int PB, class FA, class FB>
+__device__ __forceinline__ void mm(float (&acc)[4][4], int n0, int k_lo,
+                                   int k_hi, FA fa, FB fb) {
+#pragma unroll 1
+  for (int k0 = k_lo; k0 < k_hi; k0 += 16) {
+    uint32_t a[PA][4];
+    fa(a, k0);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t b[PB][4];
+      fb(b, k0, n0 + 16 * jp);
+      mma_p<PA, PB>(acc[2 * jp], a, b, 0);
+      mma_p<PA, PB>(acc[2 * jp + 1], a, b, 2);
     }
   }
 }
@@ -273,7 +478,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[jn][e] = 0.0f;
 }
-// f(row, col, value) for each element of acc
+// f(row, col, value) for each element of acc (reference to the value)
 template <class F>
 __device__ __forceinline__ void each_acc(float (&acc)[4][4], int m0,
                                          int n0, int lane, F f) {
@@ -284,18 +489,58 @@ __device__ __forceinline__ void each_acc(float (&acc)[4][4], int m0,
     for (int e = 0; e < 4; ++e)
       f(m0 + g + ((e >> 1) << 3), n0 + 8 * jn + cq + (e & 1), acc[jn][e]);
 }
-
-// the sum over a block's threads, in a fixed order; red holds 8 floats
-// (8 warps); the result is in thread 0
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// c[jn][e % 2] += f(row, col) * acc[jn][e] and r[e / 2] += the same: a
+// weighted column and row sum of acc's elements (indices fixed at compile
+// time, so the sums stay in registers)
+template <class F>
+__device__ __forceinline__ void col_sums(float (&c)[4][2],
+                                         const float (&acc)[4][4], int m0,
+                                         int n0, int lane, F f) {
+  const int g = lane >> 2, cq = (lane & 3) * 2;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[jn][e & 1] += f(m0 + g + ((e >> 1) << 3), n0 + 8 * jn + cq + (e & 1)) *
+                      acc[jn][e];
+}
+template <class F>
+__device__ __forceinline__ void row_sums(float (&r)[2],
+                                         const float (&acc)[4][4], int m0,
+                                         int n0, int lane, F f) {
+  const int g = lane >> 2, cq = (lane & 3) * 2;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      r[e >> 1] += f(m0 + g + ((e >> 1) << 3), n0 + 8 * jn + cq + (e & 1)) *
+                   acc[jn][e];
+}
+// per-row sums of a 16 x 32 block held as acc (v[0]: row m0 + g, v[1]:
+// row m0 + g + 8), folded over the four lanes of a row in a fixed order;
+// lanes with lane % 4 == 0 hold them
+__device__ __forceinline__ void fold_rows(float (&v)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    v[h] += __shfl_xor_sync(~0u, v[h], 1);
+    v[h] += __shfl_xor_sync(~0u, v[h], 2);
+  }
+}
+// per-column sums (c[jn][e % 2] the column n0 + 8 jn + 2 (lane % 4) + e %
+// 2) folded over the 8 row groups; lanes 0-3 hold them
+__device__ __forceinline__ void fold_cols(float (&c)[4][2]) {
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        c[jn][e] += __shfl_xor_sync(~0u, c[jn][e], o);
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  __syncthreads();
-  return s;
+  return v;
 }
 
 // out[q * I + i] = sum_{g < G} in[(q * G + g) * I + i], g in order: the

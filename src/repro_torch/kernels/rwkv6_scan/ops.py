@@ -192,6 +192,18 @@ def launch_bwd(r, k, v, w, u, states, dy, dstate_out):
     return dr, dk, dv, dw, du.to(u.dtype), dstate
 
 
+def bwd_occupancy(dtype) -> tuple:
+    """(resident blocks an SM, shared memory bytes a block) of
+    ``wkv6_bwd_kernel`` for ``dtype`` on the current card, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    ptr = ctypes.POINTER(ctypes.c_int)
+    fn = _build.bind("rwkv6_chunk_bwd", "wkv6_chunk_bwd_occupancy", [_I, ptr, ptr])
+    _build.check(fn(_DTYPE_CODES[dtype], ctypes.byref(blocks),
+                    ctypes.byref(smem)), "wkv6_chunk_bwd_occupancy")
+    return blocks.value, smem.value
+
+
 class _WKV6(torch.autograd.Function):
     """``wkv6`` with its backward: the forward keeps the chunk states, the
     backward launches ``wkv6_bwd_kernel`` (``wkv6_bwd_ref`` on the plain

@@ -208,3 +208,172 @@ def wkv6_bwd_ref(r, k, v, w, u, states, dy, dstate_out=None,
         g = g.permute(0, 2, 3, 1, 4).reshape(b, tp, h, n)[:, :t]
         res.append(g if key == "dw" else g.to(r.dtype))
     return (*res, du.to(u.dtype), ds)
+
+
+def _between(dtot, qa: int, qb: int):
+    """prod_{qa < q < qb} dtot[..., q, :]: the decay across the whole
+    sub-chunks strictly between sub-chunks qa and qb (qa may be -1, qb the
+    sub-chunk count); ones when none lies between."""
+    out = torch.ones_like(dtot[..., 0, :])
+    for q in range(qa + 1, qb):
+        out = out * dtot[..., q, :]
+    return out
+
+
+def wkv6_bwd_sub_ref(r, k, v, w, u, states, dy, dstate_out=None,
+                     chunk: int = 64, sub: int = 16):
+    """``wkv6_bwd_ref`` in the sub-chunk form of ``csrc/rwkv6_chunk_bwd.cu``
+    (used by the tests only): each chunk cut into sub-chunks of ``sub``,
+    every decay between two positions a product of running products that
+    start or end at a sub-chunk boundary, each factor <= 1, none divided
+    by.  Within a chunk, for sub-chunk q = [q0, q1) (per key channel j):
+
+      DQ_t = prod_{q0<=i<t} w_i, DP_t = prod_{t<i<q1} w_i, T_q = DQ_{q1-1}
+      w_{q1-1}; F(a, b) = prod_{a<q<b} T_q (F(-1, q) = D(0, q0), F(q, nq)
+      = D(q1, L));  RQ = r o DQ, KQ = k o DP
+      X = dY S0^T, Y = V dSL^T, P = dY V^T   (64 x 64 products)
+      X'_t = F(-1, q) X_t + sum_{s<q0} P[t, s] KQ_s F(q(s), q)   = dy_t S_{q0}^T
+      Y'_s = F(q, nq) Y_s + sum_{t>=q1} P[t, s] RQ_t F(q, q(t)) = v_s dS_{q1}^T
+      alpha_q = <S_{q0}, dS_{q1}> summed over i, from F, X, Y and the
+        products V_b[s] = sum_{t>=b} P[t, s] RQ_t F(b/sub - 1, q(t)), s < b
+      dv   = (KQ o F(q(s), nq)) dSL + A^T dY + bonus o dY, A's cross-sub-chunk
+             scores KQ_s F(q(s), q(t)) . RQ_t
+      dS0  = D(0, L) o dSL + sum_t (RQ_t F(-1, q(t)))^T dy_t
+    and inside each sub-chunk, per channel, the recurrences of one thread
+    (M_t[t'] = sum_{q0<=s<t} D(s+1, t) k_s P[t', s]):
+      dr_t = DQ_t X'_t + M_t[t] + u k_t P[t, t]
+      dk_t = DP_t Y'_t + sum_{t<t'<q1} D(t+1, t') r_t' P[t', t] + r_t u P[t, t]
+      dw_t = DQ_t DP_t alpha_q + DQ_t sum_{t<t'<q1} D(t+1, t') r_t' X'_t'
+             + DP_t sum_{q0<=s<t} D(s+1, t) k_s Y'_s
+             + sum_{t<t'<q1} D(t+1, t') r_t' M_t[t']
+    (dw is sum_i dS_{t+1} o S_t with both states written from the boundary
+    states S_{q0}, dS_{q1}).  Same arguments and results as
+    ``wkv6_bwd_ref``."""
+    b, t, h, n = r.shape
+    f32 = torch.float32
+    nq = chunk // sub
+    tp = max(-(-t // chunk), 1) * chunk
+    lay = lambda z: z.permute(0, 3, 1, 2, 4)          # noqa: E731
+    rs, ks, vs, dys = (lay(chunks(z.float(), tp, chunk))
+                       for z in (r, k, v, dy))         # [B, H, nc, L, N]
+    ws = lay(chunks(w.float(), tp, chunk, 1.0))
+    u_ = u.float()[None, :, None, :]                   # [1, H, 1, N]
+    ds = (torch.zeros_like(states[0]) if dstate_out is None
+          else dstate_out.float())
+    idx = torch.arange(chunk, device=r.device)
+    qof = idx // sub                                   # sub-chunk of t
+    outs = {key: [] for key in ("dr", "dk", "dv", "dw")}
+    du = torch.zeros(h, n, dtype=f32, device=r.device)
+    for c in range(tp // chunk - 1, -1, -1):
+        rc, kc, vc, wc, dyc = (z[:, :, c] for z in (rs, ks, vs, ws, dys))
+        s0 = states[c].float()
+        wq = wc.reshape(b, h, nq, sub, n)
+        dq = _excl_cumprod(wq, 3)
+        dp = torch.flip(_excl_cumprod(torch.flip(wq, [3]), 3), [3])
+        dtot = dq[:, :, :, -1] * wq[:, :, :, -1]          # [B, H, nq, N]
+        dq, dp = dq.reshape(b, h, chunk, n), dp.reshape(b, h, chunk, n)
+        rq, kq = rc * dq, kc * dp
+
+        def fq(qa, qb):
+            return _between(dtot, qa, qb)[:, :, None]    # [B, H, 1, N]
+
+        def rows(q):
+            return slice(q * sub, (q + 1) * sub)
+
+        pm = torch.einsum("bhti,bhsi->bhts", dyc, vc)
+        x = torch.einsum("bhti,bhji->bhtj", dyc, s0)
+        y = torch.einsum("bhsi,bhji->bhsj", vc, ds)
+        xq, yq = torch.zeros_like(x), torch.zeros_like(y)
+        vb = {}                      # V_b for b = 1 .. nq - 1, rows s < b sub
+        for q in range(nq):
+            acc = fq(-1, q) * x[:, :, rows(q)]
+            for qa in range(q):
+                acc = acc + torch.einsum(
+                    "bhts,bhsj->bhtj", pm[:, :, rows(q), rows(qa)],
+                    kq[:, :, rows(qa)] * fq(qa, q))
+            xq[:, :, rows(q)] = acc
+        for bq in range(1, nq):
+            rb = torch.cat([rq[:, :, rows(qt)] * fq(bq - 1, qt)
+                            for qt in range(bq, nq)], 2)
+            vb[bq] = torch.einsum("bhts,bhtj->bhsj",
+                                  pm[:, :, bq * sub:, :bq * sub], rb)
+        for q in range(nq):
+            own = vb[q + 1][:, :, rows(q)] if q + 1 < nq else 0.0
+            yq[:, :, rows(q)] = fq(q, nq) * y[:, :, rows(q)] + own
+        a = (s0 * ds).sum(-1)                              # [B, H, N]
+        zx = [(rq * x)[:, :, rows(q)].sum(2) for q in range(nq)]
+        uy = [(kq * y)[:, :, rows(q)].sum(2) for q in range(nq)]
+        alpha = []
+        for q in range(nq):
+            f0, f4 = fq(-1, q)[:, :, 0], fq(q, nq)[:, :, 0]
+            al = f0 * f4 * a
+            for q2 in range(q + 1, nq):
+                al = al + f0 * fq(q, q2)[:, :, 0] * zx[q2]
+            for q2 in range(q):
+                al = al + f4 * fq(q2, q)[:, :, 0] * uy[q2]
+                if q + 1 < nq:
+                    al = al + (kq[:, :, rows(q2)] * fq(q2, q)
+                               * vb[q + 1][:, :, rows(q2)]).sum(2)
+            alpha.append(al)
+        # the scores A[t, s], s < t: across sub-chunks a product, inside one
+        # a walk of running products
+        att = rc.new_zeros(b, h, chunk, chunk)
+        for qt in range(nq):
+            for qs in range(qt):
+                att[:, :, rows(qt), rows(qs)] = torch.einsum(
+                    "bhtj,bhsj->bhts", rq[:, :, rows(qt)],
+                    kq[:, :, rows(qs)] * fq(qs, qt))
+            for ti in range(qt * sub + 1, (qt + 1) * sub):
+                d = torch.ones_like(wc[:, :, 0])
+                for si in range(ti - 1, qt * sub - 1, -1):
+                    att[:, :, ti, si] = (rc[:, :, ti] * kc[:, :, si]
+                                         * d).sum(-1)
+                    d = d * wc[:, :, si]
+        bonus = (rc * u_ * kc).sum(-1, keepdim=True)
+        kd = torch.cat([kq[:, :, rows(q)] * fq(q, nq) for q in range(nq)], 2)
+        outs["dv"].append(torch.einsum("bhsj,bhji->bhsi", kd, ds)
+                          + torch.einsum("bhts,bhti->bhsi", att, dyc)
+                          + bonus * dyc)
+        # inside each sub-chunk: the recurrences of one thread per channel
+        dr, dk, dw = (torch.zeros_like(rc) for _ in range(3))
+        pd = torch.diagonal(pm, 0, 2, 3)[..., None]       # [B, H, L, 1]
+        for q in range(nq):
+            q0 = q * sub
+            m = [torch.zeros_like(rc[:, :, 0]) for _ in range(sub)]
+            dqt = torch.ones_like(rc[:, :, 0])
+            gam = torch.zeros_like(rc[:, :, 0])
+            for ta in range(sub):
+                t_ = q0 + ta
+                pr = torch.ones_like(dqt)
+                qd, nn_, bw = (torch.zeros_like(dqt) for _ in range(3))
+                for tb in range(ta + 1, sub):
+                    p = pm[:, :, q0 + tb, t_, None]
+                    rp = pr * rc[:, :, q0 + tb]
+                    qd = qd + rp * m[tb]
+                    nn_ = nn_ + rp * p
+                    bw = bw + rp * xq[:, :, q0 + tb]
+                    m[tb] = wc[:, :, t_] * m[tb] + kc[:, :, t_] * p
+                    pr = pr * wc[:, :, q0 + tb]
+                ppd = pd[:, :, t_]
+                dr[:, :, t_] = dqt * xq[:, :, t_] + m[ta] \
+                    + u_[:, :, 0] * kc[:, :, t_] * ppd
+                dk[:, :, t_] = pr * yq[:, :, t_] + nn_ \
+                    + rc[:, :, t_] * u_[:, :, 0] * ppd
+                dw[:, :, t_] = dqt * pr * alpha[q] + dqt * bw \
+                    + pr * gam + qd
+                gam = wc[:, :, t_] * gam + kc[:, :, t_] * yq[:, :, t_]
+                dqt = dqt * wc[:, :, t_]
+        outs["dr"].append(dr)
+        outs["dk"].append(dk)
+        outs["dw"].append(dw)
+        du = du + (rc * kc * pd).sum((0, 2))
+        g = torch.einsum("bhtj,bhti->bhji",
+                         torch.cat([rq[:, :, rows(q)] * fq(-1, q)
+                                    for q in range(nq)], 2), dyc)
+        ds = fq(-1, nq)[:, :, 0, :, None] * ds + g
+    res = []
+    for key in ("dr", "dk", "dv", "dw"):
+        g = torch.stack(outs[key][::-1], 2)             # [B, H, nc, L, N]
+        g = g.permute(0, 2, 3, 1, 4).reshape(b, tp, h, n)[:, :t]
+        res.append(g if key == "dw" else g.to(r.dtype))
+    return (*res, du.to(u.dtype), ds)

@@ -25,7 +25,8 @@ the same kernel by the same route and also writes the state entering
 every chunk of 64 steps into a fresh tensor that the backward keeps; its
 backward launches ``csrc/ssm_chunk_bwd.cu`` (``ssd_bwd_kernel``, float32
 or bfloat16, any P, N <= 64, x / Bm / Cm strided as the forward reads
-them) and the fixed-order sums of its per-head parts of dBm / dCm and its
+them; a block takes ``head_group`` heads of one batch row and chunk) and
+the fixed-order sums of its per-group parts of dBm / dCm and its
 per-(batch, chunk) parts of dA / dD; the plain version is ``ref.py``
 ``ssd_bwd_ref``.  On CPU tensors the Function runs ``ssd_fwd_ref`` /
 ``ssd_bwd_ref``.  The gradients of strided x, Bm, Cm go back to the
@@ -177,10 +178,22 @@ def _forward(x, dt, A, Bm, Cm, D, state, keep: bool):
     return y, s, states
 
 
-def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out):
+def head_group(b: int, h: int, nc: int) -> int:
+    """The heads one block of ``ssd_bwd_kernel`` takes: the largest of 8,
+    4, 2 that divides H and still leaves two blocks for each of an H100's
+    132 SMs (B * H / group * chunks >= 264), else 1.  A group loads B and
+    C once and writes one part of dBm / dCm for its heads."""
+    for g in (8, 4, 2):
+        if h % g == 0 and b * (h // g) * nc >= 2 * 132:
+            return g
+    return 1
+
+
+def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out, group=None):
     """Launch ``ssd_bwd_kernel`` and the fixed-order sums on checked
     operands: (dx in x's type, ddt, dA, dBm, dCm in their types, dD,
-    dstate float32)."""
+    dstate float32).  ``group``: the heads a block takes (default
+    ``head_group``; it must divide H)."""
     b, t, h, p = x.shape
     n = Bm.shape[-1]
     dev = x.device
@@ -190,6 +203,9 @@ def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out):
         raise ValueError(f"the ssd backward takes P, N <= {MAX_P} and "
                          f"T >= 1, got P={p}, N={n}, T={t}")
     nc = -(-t // CHUNK)
+    hg = head_group(b, h, nc) if group is None else group
+    if hg < 1 or h % hg:
+        raise ValueError(f"the head group {hg} does not divide H={h}")
     for z, nm, shape in ((x, "x", (b, t, h, p)), (Bm, "Bm", (b, t, n)),
                          (Cm, "Cm", (b, t, n))):
         _build.check_operand(z, nm, x.dtype, shape, dev,
@@ -205,7 +221,8 @@ def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out):
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, t, h), **f32)
-    db_part, dc_part = (torch.empty((b, h, t, n), **f32) for _ in range(2))
+    db_part, dc_part = (torch.empty((b, h // hg, t, n), **f32)
+                        for _ in range(2))
     db, dc = (torch.empty((b, t, n), **f32) for _ in range(2))
     da_part, dd_part = (torch.empty((b, nc, h), **f32) for _ in range(2))
     da, dd = (torch.empty((h,), **f32) for _ in range(2))
@@ -214,7 +231,7 @@ def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out):
     stream = torch.cuda.current_stream(dev).cuda_stream
     _, flags = scan_chunks.workspace(dev, stream, 0, b * h * nc + 1)
     fn = _build.bind("ssm_chunk_bwd", "ssd_chunk_bwd",
-                     [_P] * 22 + [_I] * 5 + [_L] * 6 + [_I, _P])
+                     [_P] * 22 + [_I] * 6 + [_L] * 6 + [_I, _P])
     _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                     Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
                     states.data_ptr(), dy.data_ptr(), dstate_out.data_ptr(),
@@ -222,12 +239,24 @@ def launch_bwd(x, dt, A, Bm, Cm, D, states, dy, dstate_out):
                     dc_part.data_ptr(), db.data_ptr(), dc.data_ptr(),
                     da_part.data_ptr(), dd_part.data_ptr(), da.data_ptr(),
                     dd.data_ptr(), dstate.data_ptr(), ds_mid.data_ptr(),
-                    flags.data_ptr(), b, t, h, p, n, x.stride(0),
+                    flags.data_ptr(), b, t, h, p, n, hg, x.stride(0),
                     x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
                     Cm.stride(1), _DTYPE_CODES[x.dtype], stream),
                  "ssd_bwd")
     launches["ssd_bwd"] += 1
     return dx, ddt, da, db.to(Bm.dtype), dc.to(Cm.dtype), dd, dstate
+
+
+def bwd_occupancy(dtype) -> tuple:
+    """(resident blocks an SM, shared memory bytes a block) of
+    ``ssd_bwd_kernel`` for ``dtype`` on the current card, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    ptr = ctypes.POINTER(ctypes.c_int)
+    fn = _build.bind("ssm_chunk_bwd", "ssd_chunk_bwd_occupancy", [_I, ptr, ptr])
+    _build.check(fn(_DTYPE_CODES[dtype], ctypes.byref(blocks),
+                    ctypes.byref(smem)), "ssd_chunk_bwd_occupancy")
+    return blocks.value, smem.value
 
 
 class _SSD(torch.autograd.Function):

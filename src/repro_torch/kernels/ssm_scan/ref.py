@@ -184,3 +184,82 @@ def ssd_bwd_ref(x, dt, A, Bm, Cm, D, states, dy, dstate_out=None,
     res = {key: torch.cat(v[::-1], 1)[:, :t] for key, v in outs.items()}
     return (res["dx"].to(x.dtype), res["ddt"], da.to(A.dtype),
             res["dB"].to(Bm.dtype), res["dC"].to(Cm.dtype), dd.to(D.dtype), g)
+
+
+def ssd_bwd_grouped_ref(x, dt, A, Bm, Cm, D, states, dy, dstate_out=None,
+                        group: int = 1, chunk: int = 64):
+    """``ssd_bwd_ref`` in the dataflow of ``csrc/ssm_chunk_bwd.cu`` (used by
+    the tests only): the decay matrix E[t, s] = exp(cum_t - cum_s) (s <= t,
+    masked before exp) taken once per (head, chunk) and folded into the two
+    tiles that use it, M1 = CB o E and M2 = DX o E (CB = C B^T, DX = dY
+    X^T); Q = M2 o CB o dt_s summed by rows and by columns; and dB, dC of
+    the heads summed first inside each group of ``group`` heads (the heads
+    a block of the kernel takes), then over the groups:
+
+      GB  = e1 o (B G^T) + M1^T dY,     dx = dt GB + D dy
+      dB  = sum_groups sum_(h in group) dt o (e1 o (X G) + M2^T C)
+      dC  = sum_groups sum_(h in group) exp(cum) o (dY S0) + (M2 o dt_s) B
+      dcum = exp(cum) o (dY S0) . C + rowsum Q - colsum Q
+             - e1 dt (X G) . B + [last] <G, S_leaving>
+
+    Same arguments and results as ``ssd_bwd_ref``; H a multiple of
+    ``group``."""
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    if h % group:
+        raise ValueError(f"H={h} is not a multiple of the group {group}")
+    tp = max(-(-t // chunk), 1) * chunk
+    xs, dys = chunks(x.float(), tp, chunk), chunks(dy.float(), tp, chunk)
+    dts = chunks(dt.float(), tp, chunk)                  # [B, nc, L, H]
+    bs, cs = chunks(Bm.float(), tp, chunk), chunks(Cm.float(), tp, chunk)
+    a_, d_ = A.float(), D.float()
+    g = (torch.zeros_like(states[0]) if dstate_out is None
+         else dstate_out.float())
+    tril = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()[None, :, :, None]
+    outs = {key: [] for key in ("dx", "ddt", "dB", "dC")}
+    da = torch.zeros(h, dtype=torch.float32, device=x.device)
+    dd = torch.zeros(h, dtype=torch.float32, device=x.device)
+
+    def by_group(z):                                     # [B, L, H, N]
+        return z.reshape(b, chunk, h // group, group, n).sum(3).sum(2)
+
+    for c in range(tp // chunk - 1, -1, -1):
+        xc, dyc, dtc, bc, cc = (z[:, c] for z in (xs, dys, dts, bs, cs))
+        s0 = states[c].float()
+        la = dtc * a_
+        cum = torch.cumsum(la, 1)
+        e1 = torch.exp(rev_excl_cumsum(la, 1))
+        ecum = torch.exp(cum)
+        seg = cum[:, :, None] - cum[:, None]              # [B, t, s, H]
+        e = torch.where(tril, torch.exp(torch.where(tril, seg,
+                                                    torch.zeros_like(seg))),
+                        torch.zeros_like(seg))
+        cb = torch.einsum("btn,bsn->bts", cc, bc)[..., None]
+        m1 = cb * e
+        m2 = torch.einsum("bthp,bshp->btsh", dyc, xc) * e
+        q = m2 * cb * dtc[:, None]
+        dys0 = torch.einsum("bthp,bhpn->bthn", dyc, s0)
+        xg = torch.einsum("bthp,bhpn->bthn", xc, g)
+        gb = e1[..., None] * torch.einsum("btn,bhpn->bthp", bc, g) \
+            + torch.einsum("buth,buhp->bthp", m1, dyc)
+        outs["dx"].append(dtc[..., None] * gb + d_[:, None] * dyc)
+        outs["dB"].append(by_group(dtc[..., None] * (
+            e1[..., None] * xg + torch.einsum("buth,bun->bthn", m2, cc))))
+        outs["dC"].append(by_group(
+            ecum[..., None] * dys0
+            + torch.einsum("btsh,bsh,bsn->bthn", m2, dtc, bc)))
+        xgb = e1 * dtc * (xg * bc[:, :, None]).sum(-1)
+        dcum = ecum * (dys0 * cc[:, :, None]).sum(-1) + q.sum(2) \
+            - q.sum(1) - xgb
+        dcum[:, -1] += torch.exp(cum[:, -1]) * (g * s0).sum((-2, -1)) \
+            + xgb.sum(1)
+        dla = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        outs["ddt"].append((xc * gb).sum(-1) + a_ * dla)
+        da = da + (dtc * dla).sum((0, 1))
+        dd = dd + (dyc * xc).sum((0, 1, 3))
+        g = torch.exp(cum[:, -1])[..., None, None] * g \
+            + torch.einsum("bth,bthp,btn->bhpn", ecum, dyc, cc)
+    res = {key: torch.cat(v[::-1], 1)[:, :t] for key, v in outs.items()}
+    return (res["dx"].to(x.dtype), res["ddt"], da.to(A.dtype),
+            res["dB"].to(Bm.dtype), res["dC"].to(Cm.dtype), dd.to(D.dtype), g)

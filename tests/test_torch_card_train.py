@@ -189,6 +189,36 @@ def test_scan_backward_kernels_match_plain(shape):
     assert normwise(bad, want[1]) > 10 * GRAD_TOL[dt]
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_ssd_backward_head_groups_match_plain(group, dt):
+    """``ssd_bwd_kernel`` with 1, 2 and 4 heads a block (ragged T, x / B /
+    C slices of one tensor) against ``ssd_bwd_ref``: the same gradients
+    within GRAD_TOL, and dB / dC bit-equal across two launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssm_scan import ops as tss
+    dev = _card()
+    b, t, h, p, n = (2, 130, 4, 64, 64) if dt == torch.bfloat16 \
+        else (1, 70, 4, 8, 5)
+    gen = torch.Generator(dev).manual_seed(5)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa
+    xbc = rnd(b, t, h * p + 2 * n).to(dt)
+    ops_in = (xbc[..., :h * p].reshape(b, t, h, p),
+              F.softplus(rnd(b, t, h) - 1), -torch.exp(0.5 * rnd(h)),
+              xbc[..., h * p:h * p + n], xbc[..., h * p + n:], rnd(h))
+    dy, ds = rnd(b, t, h, p).to(dt), rnd(b, h, p, n)
+    _, _, states = tss._forward(*ops_in, rnd(b, h, p, n), keep=True)
+    got = tss.launch_bwd(*ops_in, states, dy, ds, group=group)
+    again = tss.launch_bwd(*ops_in, states, dy, ds, group=group)
+    want = tss.R.ssd_bwd_ref(*(z.float() for z in ops_in), states,
+                             dy.float(), ds)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert normwise(g, w_) <= GRAD_TOL[dt]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
                                   "internvl2-2b", "whisper-base"])
 def test_family_losses_on_the_card_match_the_cpu(arch):

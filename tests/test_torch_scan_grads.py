@@ -201,3 +201,53 @@ def test_ssd_function_on_cpu_strided():
     _, want = run(tsref.ssd_ref)
     for name, g, wt in zip(("xbc", "ddt", "dA", "dD", "dstate"), got, want):
         assert normwise(g, wt) < TOL, (name, normwise(g, wt))
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_wkv6_bwd_sub_ref_vs_jax_sequential(case):
+    """The sub-chunk form of the K5 backward kernel (``wkv6_bwd_sub_ref``:
+    sub-chunks of 16, the states at their boundaries, the recurrences of
+    one thread per channel and sub-chunk) against ``jax.vjp`` of the
+    sequential ``wkv6_ref``; decays down to 1e-20 in the strong draws."""
+    seed, b, t, h, n, decay = WKV_CASES[case]
+    r, k, v, w, u, s0, dy, ds = wkv_inputs(seed, b, t, h, n, decay)
+    want = jax_vjp(jax.jit(jwref.wkv6_ref), (r, k, v, w, u, s0), (dy, ds))
+    _, _, states = twref.wkv6_fwd_ref(*map(t_, (r, k, v, w, u, s0)))
+    got = twref.wkv6_bwd_sub_ref(*map(t_, (r, k, v, w, u)), states, t_(dy),
+                                 t_(ds))
+    for name, g, wt in zip(WKV_NAMES, got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert normwise(g, wt) < TOL, (case, name, normwise(g, wt))
+
+
+SSD_GROUPED = {"ragged-1": ("ragged", 1), "ragged-3": ("ragged", 3),
+               "three_chunks-2": ("three_chunks", 2),
+               "short-2": ("short", 2)}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_GROUPED))
+def test_ssd_bwd_grouped_ref_vs_jax(case):
+    """The K6 backward kernel's dataflow (``ssd_bwd_grouped_ref``: E folded
+    into M1 = CB o E and M2 = DX o E, Q's row and column sums, dB and dC
+    summed inside groups of heads, then over the groups) against
+    ``jax.vjp`` of the sequential ``ssd_ref``."""
+    name, group = SSD_GROUPED[case]
+    seed, b, t, h, p, n = SSD_CASES[name]
+    x, dt, a, bm, cm, d, s0, dy, ds = ssd_inputs(seed, b, t, h, p, n)
+    want = jax_vjp(jax.jit(jsref.ssd_ref), (x, dt, a, bm, cm, d, s0),
+                   (dy, ds))
+    _, _, states = tsref.ssd_fwd_ref(*map(t_, (x, dt, a, bm, cm, d, s0)))
+    got = tsref.ssd_bwd_grouped_ref(*map(t_, (x, dt, a, bm, cm, d)), states,
+                                    t_(dy), t_(ds), group=group)
+    for nm, g, wt in zip(SSD_NAMES, got, want):
+        assert bool(torch.isfinite(g).all()), nm
+        assert normwise(g, wt) < TOL, (case, nm, normwise(g, wt))
+
+
+@pytest.mark.parametrize("b,h,nc,want", [(8, 64, 32, 8), (8, 32, 32, 8),
+                                         (1, 64, 6, 1), (2, 4, 3, 1),
+                                         (4, 12, 32, 4), (3, 6, 64, 2)])
+def test_ssd_head_group(b, h, nc, want):
+    """The heads a block of the K6 backward takes: the largest of 8, 4, 2
+    dividing H that leaves two blocks for each of the H100's 132 SMs."""
+    assert tsops.head_group(b, h, nc) == want
