@@ -67,7 +67,8 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               the greedy engine, the MoE's mcts_decode_batch through the
               generic fallback), each card call's K4 / K3 launches held
               to what its path implies
-  7. full     the P-game main path at full size (FULL below): pipeline /
+  7. full     the P-game main path at full size (FULL below; the
+              lockstep runs at a quarter budget, LOCKSTEP): pipeline /
               tree with the fused wave and the lockstep select, both
               vl_modes and both level_assigns; the LM main path (LM_FULL:
               smollm-135m, 16 ragged prompts, 8 tokens each); the serving
@@ -86,7 +87,8 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               commit step's times (lines ``lm-carry``,
               ``lm-carry-reroot``)
   7b. shard  after ``full`` and before any tracing, each its own line:
-              ``shard``: the FULL P-game runs pipeline/mega loss/independent
+              ``shard``: the P-game runs (SHARDED: FULL at a quarter
+              budget) pipeline/mega loss/independent
               and tree/mega wu/running through ``search_batch(mesh=)`` over
               an in-process mesh of SHARD_ENTRIES entries on ``cuda:0``
               (and over every card when there are two or more), at B = 128
@@ -95,10 +97,10 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               the line says which), playouts/s of both; ``shard-mp``: two
               processes started with ``spawn`` on ``cuda:0`` under gloo
               (NCCL refuses two ranks on one card), or one rank per card
-              under NCCL, ``shard_search_batch`` at FULL under
+              under NCCL, ``shard_search_batch`` at SHARDED under
               ``make_search_mesh()``, each rank's gathered result written
               through ``repro_torch.checkpoint`` and held here against
-              this process's run; ``ft``: ``ft_search_batch`` at FULL
+              this process's run; ``ft``: ``ft_search_batch`` at SHARDED
               (4 hosts, chunks of 16) without failure, with a killed and a
               stalled host, and stopped after one round then resumed from
               the checkpoint store by a fresh driver, each merged result
@@ -137,12 +139,16 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               ``blocked_bwd_ref``) at smollm-135m's and stablelm-3b's
               training shapes in bf16, the bf16 tails and knobs (Sq, Sk
               not multiples of 64, q_offset, seq_k_valid, soft caps,
-              non-causal, D = 128) and a float32 shape with every knob,
+              non-causal, D = 128), deepseek-v2-lite's MLA (192, 128) at
+              4 x 4096 and with tails (B's two-warpgroup kernels,
+              row ``flash_attention_bwd_mla``, SDPA's kernels there
+              named) and a float32 shape with every knob,
               planted faults above both limits, two launches of B
               bit-equal, timed at smollm's beside SDPA's forward and
               backward; ``train-small``: the
               four dense smoke configs' ``make_train_step`` (and one
-              grad-accumulation step), card == CPU within
+              grad-accumulation step), then the other families' and
+              both MoE smoke configs, card == CPU within
               TRAIN_SMALL_TOL; ``train-full``: smollm-135m at its
               published width through ``launch.train.build`` (bf16,
               remat, 8 x 2048 tokens a step), step 0 with the kernels
@@ -152,10 +158,18 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               (``chiprun_out/profile_train.txt``), then 12 steps under
               ``TrainerLoop`` with a failure at step 7 and a restart
               from step 5 whose losses equal an uninterrupted run's bit
-              for bit; ``serve-launch``: ``launch.serve.main`` greedy
-              and ``--mcts`` on smollm-smoke, card == CPU
+              for bit; ``train-full-rwkv6`` / ``-zamba2`` / ``-vlm`` /
+              ``-whisper`` / ``-deepseek``: each family at its published
+              widths (deepseek-v2-lite-16b at 4 x 4096 cut to its dense
+              layer + 3 MoE layers, TRAIN_FAM_DEPTH), step 0 on its
+              first layers against the plain versions (deepseek's plain
+              runs take the kernel run's expert choices) with a planted
+              fault, timed steps, one traced; ``serve-launch``:
+              ``launch.serve.main`` greedy and ``--mcts`` on
+              smollm-smoke, card == CPU
   8. profile  device busy share and time by kernel of the fused P-game
-              runs, one LM token's search and one engine step of each
+              runs (at a quarter of FULL's budget, PROFILED), one LM
+              token's search and one engine step of each
               recurrent run (torch.profiler), tables in
               ``chiprun_out/profile.txt``, ``profile_lm.txt`` and
               ``profile_rec.txt``; deepseek-v2-lite-16b's engine step and
@@ -175,7 +189,8 @@ two CUDA events and one synchronise, after two warm-up calls and queued
 behind a spin kernel, so that the device, not the host, sets the pace;
 operands the real caller finds cold (K3's cache slices) rotate so that
 together they exceed the 50 MB L2; kernel, plain version, SDPA and the
-earlier kernel timed in turns, the median of ``TURNS``.  Host cost
+earlier kernel timed in turns, the median of ``TURNS`` (a plain version
+``PLAIN_REPS`` calls a turn).  Host cost
 (``host_us``): a wrapper's microseconds per call on the host clock over
 many calls with no synchronise; for the search wrappers the median of
 ROUNDS rounds taken in turns with their kernel timing.
@@ -207,10 +222,16 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 FULL = dict(batch=128, num_actions=16, game_depth=12, budget=4096, lanes=32,
             max_depth=12, cp=0.7)
+# a quarter of FULL's budget, where the budget is depth only: the traced
+# runs, the lockstep runs (a tenth of the fused runs' rate) and the
+# sharded / FT runs (each root held to its single-device run)
+PROFILED = LOCKSTEP = SHARDED = dict(FULL, budget=FULL["budget"] // 4)
 SMALL = dict(batch=4, num_actions=4, game_depth=6, budget=64, lanes=8,
              max_depth=6, cp=0.7)
 SNAPSHOT_TICKS = 24
 TIMING_REPS = 20      # back-to-back calls between two CUDA events
+PLAIN_REPS = 2        # ... of a plain version (it repeats the kernel's
+                      # arithmetic and is no yardstick of speed)
 TURNS = 3             # kernel / plain / library timed in turns; the median
 ROUNDS = 5            # the search kernels: kernel, plain and host rounds
 HOST_CALLS = 200      # wrapper calls timed on the host clock
@@ -435,6 +456,11 @@ def phase_build(before=None):
     say("ptxas kernel B (flash_attention_bwd.cu), registers / spill-store "
         "bytes: " + ", ".join(f"{k} {v.get('regs')}/{v.get('spill')}"
                               for k, v in sorted(bwd.items())))
+    spilled = [k for k, v in bwd.items() if "wgmma" in k and v.get("spill")]
+    if spilled or not all(any(k.startswith(n) for k in bwd) for n in (
+            "fa_bwd_dkdv_wgmma2_kernel", "fa_bwd_dq_wgmma2_kernel")):
+        fail(f"ptxas: kernel B's bf16 instantiations {spilled} spill, or "
+             "a two-warpgroup kernel was not built")
     return secs, regs, sass_check(_build.BUILD_DIR)
 
 
@@ -464,6 +490,11 @@ SASS_NEEDS = (("flash_attention", "fa_wgmma_kernel", "HGMMA"),
               ("flash_attention_bwd", "fa_bwd_dkdv_wgmma_kernel", "UTMALDG"),
               ("flash_attention_bwd", "fa_bwd_dq_wgmma_kernel", "HGMMA"),
               ("flash_attention_bwd", "fa_bwd_dq_wgmma_kernel", "UTMALDG"),
+              ("flash_attention_bwd", "fa_bwd_dkdv_wgmma2_kernel", "HGMMA"),
+              ("flash_attention_bwd", "fa_bwd_dkdv_wgmma2_kernel",
+               "UTMALDG"),
+              ("flash_attention_bwd", "fa_bwd_dq_wgmma2_kernel", "HGMMA"),
+              ("flash_attention_bwd", "fa_bwd_dq_wgmma2_kernel", "UTMALDG"),
               ("decode_attention", "da_kernel", "LDGSTS"),
               ("ssm_chunk", "ssd_chunk_kernel", "HMMA"),
               ("rwkv6_chunk", "wkv6_chunk_kernel", "HMMA"),
@@ -778,13 +809,15 @@ def phase_kernels(dev):
         cases = {
             "se": (lambda t: W.launch_se(t, sp, lanes, True), fresh),
             "se/plain": (lambda t: W.se(t, sp, lanes, True, impl="ref"),
-                         fresh),
+                         dict(fresh, reps=PLAIN_REPS)),
             "bes": (lambda t: W.launch_bes(t, sp, lanes, True, se_leaf,
                                            se_valid, pbk), fresh),
             "bes/plain": (lambda t: W.bes(t, sp, lanes, True, se, pb,
-                                          impl="ref"), fresh),
+                                          impl="ref"),
+                          dict(fresh, reps=PLAIN_REPS)),
             "b": (lambda t: W.launch_b(t, sp, pbk), fresh),
-            "b/plain": (lambda t: W.b(t, sp, pb, impl="ref"), fresh),
+            "b/plain": (lambda t: W.b(t, sp, pb, impl="ref"),
+                        dict(fresh, reps=PLAIN_REPS)),
             # K2a through its wrapper on the arena's int32 planes and on
             # the float32 board (no copy on either)
             "uct_argmax_tiles": (lambda _: U.uct_argmax(
@@ -792,7 +825,7 @@ def phase_kernels(dev):
             "uct_argmax_tiles/f32": (lambda _: U.uct_argmax(
                 flat[0], flat[1], flat[2], pnf, impl="cuda", **kwf), {}),
             "uct_argmax_tiles/plain": (lambda _: U.uct_argmax(
-                n_, w_, v_, pn, impl="ref", **kw), {}),
+                n_, w_, v_, pn, impl="ref", **kw), {"reps": PLAIN_REPS}),
             "launch_floor": (lambda _: torch.cuda._sleep(0), {}),
             "uct_argmax_running": (lambda _: U.launch_running(
                 flat[0].view(board), flat[1].view(board),
@@ -800,12 +833,14 @@ def phase_kernels(dev):
                 pnf.view(tree.batch, lanes), vf.view(board), pid, out2,
                 cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
             "uct_argmax_running/plain": (lambda _: U.uct_argmax_running(
-                n_, w_, v_, pn, node, impl="ref", **kw), {}),
+                n_, w_, v_, pn, node, impl="ref", **kw),
+                {"reps": PLAIN_REPS}),
             "uct_argmax_running_l0": (lambda _: U.launch_running(
                 flat0[0], flat0[1], flat0[2], flat0[2], pnf0, vf0, pid0,
                 out2, cp=sp.cp, vl_weight=sp.vl_weight, wu=wu), {}),
             "uct_argmax_running_l0/plain": (lambda _: U.uct_argmax_running(
-                n0_, w0_, v0_, pn0, node0, impl="ref", **kw0), {})}
+                n0_, w0_, v0_, pn0, node0, impl="ref", **kw0),
+                {"reps": PLAIN_REPS})}
         if BEFORE:    # the parent's wrapper on the float32 board: no copy
             cases["uct_argmax_tiles/before"] = (
                 lambda _: BEFORE["uct_select"].uct_argmax(
@@ -978,28 +1013,33 @@ def reset_launches():
 
 
 def phase_full(dev):
+    """FULL_RUNS at FULL, the lockstep ones at LOCKSTEP: root visits and
+    completed playouts equal to the budget, the tree invariants, each
+    run's kernels launched."""
     from repro_torch.core.tree import check_consistency
-    draws = {m: draws_for(FULL, m, 1000 + i)
-             for i, m in enumerate(("pipeline", "tree"))}
+    draws = {(m, c["budget"]): draws_for(c, m, 1000 + i)
+             for i, m in enumerate(("pipeline", "tree"))
+             for c in (FULL, LOCKSTEP)}
     runs = []
     torch.cuda.synchronize()
     reset_launches()                       # the main path starts here
     for m, ws, vl, la in FULL_RUNS:
+        cfg = FULL if ws == "mega" else LOCKSTEP
         before = all_launches()
-        d = draws[m].to(dev)
+        d = draws[(m, cfg["budget"])].to(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_batch(dev, FULL, m, ws, vl, la, d)
+        res = run_batch(dev, cfg, m, ws, vl, la, d)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         after = all_launches()
         what = f"full {m}/{ws}/{vl}/{la}"
         tree = res.tree
-        if not bool((tree.visits[:, 0] == FULL["budget"]).all()):
-            fail(f"{what}: root visits != {FULL['budget']}")
+        if not bool((tree.visits[:, 0] == cfg["budget"]).all()):
+            fail(f"{what}: root visits != {cfg['budget']}")
         if not bool((res.stats["playouts_completed"]
-                     == FULL["budget"]).all()):
-            fail(f"{what}: playouts_completed != {FULL['budget']}")
+                     == cfg["budget"]).all()):
+            fail(f"{what}: playouts_completed != {cfg['budget']}")
         cons = check_consistency(tree)
         for k in ("vloss_drained", "unobs_drained", "parents_valid",
                   "visit_flow"):
@@ -1010,7 +1050,7 @@ def phase_full(dev):
         for k in need:
             if launched[k] == 0:
                 fail(f"{what}: kernel {k} was not launched")
-        rate = FULL["batch"] * FULL["budget"] / secs
+        rate = cfg["batch"] * cfg["budget"] / secs
         runs.append({"run": what, "seconds": secs, "playouts_per_s": rate,
                      "launches": launched,
                      "nodes_mean": float(cons["nodes"].float().mean()),
@@ -1024,9 +1064,9 @@ def phase_full(dev):
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
-        + f" (B={FULL['batch']} x {FULL['budget']} playouts, "
-        f"A={FULL['num_actions']} depth={FULL['game_depth']} "
-        f"lanes={FULL['lanes']})")
+        + f" (B={FULL['batch']} x {FULL['budget']} playouts, lockstep "
+        f"{LOCKSTEP['budget']}, A={FULL['num_actions']} "
+        f"depth={FULL['game_depth']} lanes={FULL['lanes']})")
     return runs, counts
 
 
@@ -1039,6 +1079,7 @@ PORT_KERNELS = ("::fa_wgmma_kernel<", "::fa_kernel(", "::da_kernel<",
                 "::ssd_chunk_kernel(", "::fa_bwd_delta_kernel<",
                 "::fa_bwd_dkdv_kernel<", "::fa_bwd_dq_kernel<",
                 "::fa_bwd_dkdv_wgmma_kernel<", "::fa_bwd_dq_wgmma_kernel<",
+                "::fa_bwd_dkdv_wgmma2_kernel<", "::fa_bwd_dq_wgmma2_kernel<",
                 "::wkv6_bwd_kernel<", "::ssd_bwd_kernel<",
                 "group_sum_kernel")
 
@@ -1108,19 +1149,19 @@ def write_out(name: str, lines) -> None:
 
 
 def phase_profile(dev):
-    """Where the time goes on the fused full-size P-game runs (table in
-    ``chiprun_out/profile.txt``).  The lockstep runs are left out: tracing
-    their ~10^5 small launches takes minutes.  No warm-up run: ``full``
-    ran the same runs earlier in this process (kernels built and loaded,
-    the same shapes allocated)."""
+    """Where the time goes on the fused P-game runs at FULL's width and a
+    quarter of its budget (PROFILED; table in ``chiprun_out/profile.txt``):
+    the trace of a full-budget run takes most of a minute to read.  The
+    lockstep runs are left out: tracing their ~10^5 small launches takes
+    minutes."""
     lines, shares = [], {}
     for m, ws, vl, la in FULL_RUNS:
         if ws != "mega":
             continue
-        d = draws_for(FULL, m, 1000).to(dev)
-        what = f"{m}/{ws}/{vl}/{la}"
+        d = draws_for(PROFILED, m, 1000).to(dev)
+        what = f"{m}/{ws}/{vl}/{la} budget {PROFILED['budget']}"
         summary, table = profile_one(
-            what, lambda: run_batch(dev, FULL, m, ws, vl, la, d), warm=False)
+            what, lambda: run_batch(dev, PROFILED, m, ws, vl, la, d))
         if summary:
             shares[what] = summary
             lines += table
@@ -1240,6 +1281,35 @@ def sdpa_fn(q, k, v, **kw):
     import torch.nn.functional as F
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend PyTorch's SDPA dispatch picks for these [B, S, H, D]
+    operands (``torch._fused_sdp_choice``; its backward is that
+    backend's)."""
+    from torch.nn.attention import SDPBackend
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return "not named (no torch._fused_sdp_choice)"
+    i = choice(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               **kw)
+    return {int(b): n for n, b in SDPBackend.__members__.items()}.get(
+        int(i), str(i))
+
+
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn(None)`` launches
+    (torch.profiler): which backend a PyTorch call chose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(None)
+        torch.cuda.synchronize()
+    return sorted({e.key[:90] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0})
 
 
 def fa_cases(q, k, v, causal=True, before=True):
@@ -2327,7 +2397,7 @@ def timed(fn):
 
 
 def phase_shard(dev):
-    """``shard_search_batch`` (through ``search_batch(mesh=)``) at FULL
+    """``shard_search_batch`` (through ``search_batch(mesh=)``) at SHARDED
     over an in-process mesh of SHARD_ENTRIES entries on ``cuda:0`` (and
     over every card when there are two or more), at B = 128 and at 126
     (padding), each root held to the single-device ``search_batch`` of
@@ -2342,9 +2412,9 @@ def phase_shard(dev):
             [torch.device("cuda", i) for i in range(n)])
     out = []
     for i, (m, ws, vl, la) in enumerate(SHARD_RUNS):
-        draws = draws_for(FULL, m, SHARD_SEED + i).to(dev)
-        for b in (FULL["batch"], FULL["batch"] - 2):
-            cfg = dict(FULL, batch=b)
+        draws = draws_for(SHARDED, m, SHARD_SEED + i).to(dev)
+        for b in (SHARDED["batch"], SHARDED["batch"] - 2):
+            cfg = dict(SHARDED, batch=b)
             want, secs = timed(lambda: run_batch(dev, cfg, m, ws, vl, la,
                                                  draws[:b]))
             for name, mesh in meshes.items():
@@ -2355,9 +2425,10 @@ def phase_shard(dev):
                     fail(f"{what}: tree batch {got.tree.batch} != {b}")
                 how = hold_roots(what, got, want)
                 out.append({"run": what, "equal": how,
-                            "playouts_per_s": b * FULL["budget"] / gsecs,
+                            "playouts_per_s":
+                                b * SHARDED["budget"] / gsecs,
                             "single_playouts_per_s":
-                                b * FULL["budget"] / secs})
+                                b * SHARDED["budget"] / secs})
                 say(f"shard {m}/{ws}/{vl}/{la} B={b} mesh {name}: every "
                     f"root == single device (integers exact, value {how}); "
                     f"{out[-1]['playouts_per_s']:.0f} playouts/s sharded, "
@@ -2394,7 +2465,7 @@ def shard_mp_worker(rank: int, world: int, backend: str, init: str,
 def phase_shard_mp(dev):
     """Two processes on ``cuda:0`` under gloo (NCCL refuses two ranks on
     one card), or one rank per card under NCCL where there are two or
-    more, run ``shard_search_batch`` at FULL under ``make_search_mesh()``;
+    more, run ``shard_search_batch`` at SHARDED under ``make_search_mesh()``;
     each writes its gathered result through ``repro_torch.checkpoint``,
     held here against this process's own single-device run."""
     import multiprocessing
@@ -2412,7 +2483,7 @@ def phase_shard_mp(dev):
             for r in range(world)]
     procs = [ctx.Process(target=shard_mp_worker,
                          args=(r, world, backend, f"file://{base}/rdv",
-                               str(base), seed, devs[r], FULL))
+                               str(base), seed, devs[r], SHARDED))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
@@ -2429,12 +2500,14 @@ def phase_shard_mp(dev):
     if [p.exitcode for p in procs] != [0] * world:
         fail(f"shard-mp: ranks exited {[p.exitcode for p in procs]}")
     m, ws, vl, la = SHARD_RUNS[0]
-    sc = SearchConfig(method=m, budget=FULL["budget"], lanes=FULL["lanes"],
+    sc = SearchConfig(method=m, budget=SHARDED["budget"],
+                      lanes=SHARDED["lanes"],
                       keep_tree=False,
-                      params=search_params(FULL, wave_select=ws, vl_mode=vl,
+                      params=search_params(SHARDED, wave_select=ws,
+                                           vl_mode=vl,
                                            level_assign=la))
-    want = search_batch([make_domain(FULL)] * FULL["batch"], sc,
-                        draws_for(FULL, m, seed), device=dev)
+    want = search_batch([make_domain(SHARDED)] * SHARDED["batch"], sc,
+                        draws_for(SHARDED, m, seed), device=dev)
     how = []
     for r in range(world):
         got = store.restore(f"{base}/rank{r}", 1, want)
@@ -2442,7 +2515,8 @@ def phase_shard_mp(dev):
     say(f"shard-mp {world} processes under {backend} "
         + ("(each on cuda:0, gathered through host copies)"
            if backend == "gloo" else "(one rank per card)")
-        + f", {m}/{ws}/{vl}/{la} B={FULL['batch']}: every rank's gathered "
+        + f", {m}/{ws}/{vl}/{la} B={SHARDED['batch']} x "
+        f"{SHARDED['budget']}: every rank's gathered "
         f"result == this process's single-device run (integers exact, "
         f"value {'; '.join(sorted(set(how)))}); {secs:.1f} s for the ranks "
         f"from spawn to exit")
@@ -2451,7 +2525,7 @@ def phase_shard_mp(dev):
 
 
 def phase_ft(dev):
-    """``ft_search_batch`` at FULL (pipeline/mega, FT_HOSTS hosts, chunks
+    """``ft_search_batch`` at SHARDED (pipeline/mega, FT_HOSTS hosts, chunks
     of FT_CHUNK) without failure, with a killed host, a stalled host and a
     driver stopped after one round and resumed from the checkpoint store
     by a fresh driver; each merged result held per root to the
@@ -2462,13 +2536,15 @@ def phase_ft(dev):
     from repro_torch.search import (ElasticSearchDriver, FTSearchConfig,
                                     SearchConfig, search_batch)
     m, ws, vl, la = SHARD_RUNS[0]
-    b, hosts, chunk = FULL["batch"], FT_HOSTS, FT_CHUNK
-    sc = SearchConfig(method=m, budget=FULL["budget"], lanes=FULL["lanes"],
+    b, hosts, chunk = SHARDED["batch"], FT_HOSTS, FT_CHUNK
+    sc = SearchConfig(method=m, budget=SHARDED["budget"],
+                      lanes=SHARDED["lanes"],
                       keep_tree=False,
-                      params=search_params(FULL, wave_select=ws, vl_mode=vl,
+                      params=search_params(SHARDED, wave_select=ws,
+                                           vl_mode=vl,
                                            level_assign=la))
-    doms = [make_domain(FULL)] * b
-    draws = draws_for(FULL, m, SHARD_SEED + 11)
+    doms = [make_domain(SHARDED)] * b
+    draws = draws_for(SHARDED, m, SHARD_SEED + 11)
     want, base_s = timed(lambda: search_batch(doms, sc, draws, device=dev))
     per = b // hosts
     ckpt = ROOT / "chiprun_out" / "ft_ckpt"
@@ -3931,18 +4007,18 @@ def phase_whisper_full(dev):
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "smollm-135m"
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd", "wkv6_bwd",
-                 "ssd_bwd")                       # training
+                 "ssd_bwd", "flash_attention_bwd_mla")     # training
 TRAIN_SMALL_ARCHS = ("smollm-135m", "qwen2-0.5b", "minicpm-2b",
                      "stablelm-3b")
 TRAIN_SMALL = dict(batch=2, seq=40, steps=3, lr=1e-3)
 # smollm's pre-training context: 8 x 2048 = 16,384 tokens a step
 TRAIN_FULL = dict(batch=8, seq=2048, steps=12, ckpt_every=5, fail_at=7,
                   lr=3e-4, timed=5)
-# the train-kernels shapes: smollm-135m's and stablelm-3b's training
-# attention in bf16; the bf16 kernels' tails and knobs (Sq, Sk not
-# multiples of the 64 tile, q_offset, seq_k_valid < Sk, a soft cap, GQA,
-# non-causal) and grok's soft cap at its head dim, 128; the float32 knobs
-# at the smoke head dim
+# the train-kernels shapes (name, B, Sq, Sk, H, Hkv, D, dtype, knobs[, Dv]):
+# smollm-135m's and stablelm-3b's training attention in bf16; the bf16
+# kernels' tails and knobs (Sq, Sk not multiples of the 64 tile, q_offset,
+# seq_k_valid < Sk, a soft cap, GQA, non-causal) and grok's soft cap at its
+# head dim, 128; the float32 knobs at the smoke head dim
 TRAIN_KERNEL_SHAPES = (
     ("smollm", 8, 2048, 2048, 9, 3, 64, "bf16", dict(causal=True)),
     ("stablelm", 2, 1024, 1024, 32, 32, 80, "bf16", dict(causal=True)),
@@ -3960,7 +4036,16 @@ TRAIN_KERNEL_SHAPES = (
     ("internvl2", 8, 2048, 2048, 16, 8, 128, "bf16", dict(causal=True)),
     ("whisper-enc", 16, 1500, 1500, 8, 8, 64, "bf16", dict(causal=False)),
     ("whisper-cross", 16, 448, 1500, 8, 8, 64, "bf16", dict(causal=False)),
-    ("whisper-dec", 16, 448, 448, 8, 8, 64, "bf16", dict(causal=True)))
+    ("whisper-dec", 16, 448, 448, 8, 8, 64, "bf16", dict(causal=True)),
+    # deepseek-v2-lite's MLA at its training shape (DeepSeek-V2's 4K
+    # context, 4 x 4096 tokens), (192, 128) on the two-warpgroup dK / dV
+    # kernel; then its tails with q_offset, seq_k_valid and GQA, and the
+    # non-causal route
+    ("deepseek", 4, 4096, 4096, 16, 16, 192, "bf16", dict(causal=True), 128),
+    ("mla-knobs", 2, 77, 77, 4, 2, 192, "bf16",
+     dict(causal=True, q_offset=5, seq_k_valid=70), 128),
+    ("mla-noncausal", 2, 77, 90, 4, 4, 192, "bf16",
+     dict(causal=False, seq_k_valid=83), 128))
 # kernel A's lse against the plain version in float32 on the same inputs,
 # absolute: the scores summed in another order, exp2 / log2 against exp /
 # log, of values up to log(2048) + max score
@@ -3994,11 +4079,12 @@ def visible_pairs(b, sq, sk, h, causal=True, q_offset=0, seq_k_valid=None,
 
 def train_bounds(q, k, v, kw):
     """(kernel A's bound, kernel B's bound): every operand read and result
-    written once (lse float32), against 2 D flops per visible pair and
-    product (A: QK^T and PV; B: QK^T, dO V^T, dV, dK and dQ) at the peak of
-    the inputs' type."""
+    written once (lse float32), against 2 D flops per visible pair for
+    each product over the q/k head dim and 2 Dv for each over the v head
+    dim (A: QK^T and PV, 2 (D + Dv); B: QK^T, dK and dQ over D, dO V^T and
+    dV over Dv, 2 (3 D + 2 Dv)) at the peak of the inputs' type."""
     b, sq, h, d = q.shape
-    sk = k.shape[1]
+    sk, dv = k.shape[1], v.shape[-1]
     es = q.element_size()
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     pairs = visible_pairs(b, sq, sk, h, **kw)
@@ -4006,8 +4092,8 @@ def train_bounds(q, k, v, kw):
     lse = 4 * b * h * sq
     # A: q, k, v in, out and lse out; B: q, k, v, out, dout and lse in,
     # dq, dk, dv out
-    return (bound_ms(es * io + lse, 2 * 2 * d * pairs, peak),
-            bound_ms(es * 2 * io + lse, 5 * 2 * d * pairs, peak))
+    return (bound_ms(es * io + lse, 2 * (d + dv) * pairs, peak),
+            bound_ms(es * 2 * io + lse, 2 * (3 * d + 2 * dv) * pairs, peak))
 
 
 def normwise(got, want) -> float:
@@ -4027,12 +4113,13 @@ def train_kernel_case(dev, spec):
     the same function (causal, no offset, cap or padding)."""
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as R
-    name, b, sq, sk, h, hkv, d, dts, kw = spec
+    name, b, sq, sk, h, hkv, d, dts, kw = spec[:9]
+    dv = spec[9] if len(spec) > 9 else d
     dt = torch.bfloat16 if dts == "bf16" else torch.float32
     gen = torch.Generator(dev).manual_seed(31)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dt)  # noqa
-    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
-        rnd(b, sq, h, d)
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, hkv, d), \
+        rnd(b, sk, hkv, dv), rnd(b, sq, h, dv)
     out, lse = FA.flash_attention_lse(q, k, v, **kw)
     if not torch.equal(out, FA.flash_attention(q, k, v, **kw)):
         fail(f"train-kernels {name}: kernel A's output differs from the "
@@ -4068,7 +4155,7 @@ def train_kernel_case(dev, spec):
     if not all(torch.equal(x, y) for x, y in zip(grads, again)):
         fail(f"train-kernels {name}: two launches of kernel B on the same "
              "inputs differ")
-    res = {"shape": [b, sq, sk, h, hkv, d], "dtype": dts, "knobs": kw,
+    res = {"shape": [b, sq, sk, h, hkv, d, dv], "dtype": dts, "knobs": kw,
            "lse_err": lse_err, "lse_planted": planted_lse,
            "out_abs_err": max_diff(out, out_ref),
            "grad_normwise": errs, "grad_planted": planted,
@@ -4077,11 +4164,13 @@ def train_kernel_case(dev, spec):
     import torch.nn.functional as F
     ca = {"ms": (lambda _: FA.flash_attention_lse(q, k, v, **kw), {}),
           "plain_ms": (lambda _: FA.flash_attention_lse(q, k, v, impl="ref",
-                                                        **kw), {})}
+                                                        **kw),
+                       {"reps": PLAIN_REPS})}
     cb = {"ms": (lambda _: FA.flash_attention_bwd(q, k, v, out, lse, dout,
                                                   **kw), {}),
           "plain_ms": (lambda _: FA.flash_attention_bwd(
-              q, k, v, out, lse, dout, impl="ref", **kw), {})}
+              q, k, v, out, lse, dout, impl="ref", **kw),
+              {"reps": PLAIN_REPS})}
     if set(kw) == {"causal"} and (sq == sk or not kw["causal"]):
         # SDPA computes the same function (no offset, cap or padding)
         gqa, causal = hkv != h, kw["causal"]
@@ -4094,6 +4183,10 @@ def train_kernel_case(dev, spec):
                                            enable_gqa=gqa), {})
         cb["sdpa_ms"] = (lambda _: torch.autograd.grad(
             so, (qs, ks, vs), do, retain_graph=True), {})
+        if dv != d:      # which of SDPA's backends takes D != Dv
+            res["sdpa_backend"] = sdpa_backend(q, k, v, is_causal=causal,
+                                               enable_gqa=gqa)
+            res["sdpa_kernels"] = device_kernels(ca["sdpa_ms"][0])
     ba, bb = train_bounds(q, k, v, kw)
     res["a"] = dict({"sdpa_ms": None}, **time_turns(ca), bound=ba)
     res["b"] = dict({"sdpa_ms": None}, **time_turns(cb), bound=bb)
@@ -4113,14 +4206,17 @@ def phase_train_kernels(dev):
     launches) and the checks."""
     cases = {spec[0]: train_kernel_case(dev, spec)
              for spec in TRAIN_KERNEL_SHAPES}
-    t = cases["smollm"]
+    mla = lambda c: (c["dtype"] == "bf16"                       # noqa: E731
+                     and c["shape"][5] != c["shape"][6])
     rows = {}
-    for key, part, err in (
-            ("flash_attention_lse", "a",
+    for key, part, name, err in (
+            ("flash_attention_lse", "a", "smollm",
              max(c["lse_err"] for c in cases.values())),
-            ("flash_attention_bwd", "b",
-             max(c["grad_abs_err"] for c in cases.values()))):
-        p = t[part]
+            ("flash_attention_bwd", "b", "smollm",
+             max(c["grad_abs_err"] for c in cases.values() if not mla(c))),
+            ("flash_attention_bwd_mla", "b", "deepseek",
+             max(c["grad_abs_err"] for c in cases.values() if mla(c)))):
+        p = cases[name][part]
         rows[key] = {"max_abs_err": err, "ms": p["ms"],
                      "plain_ms": p["plain_ms"], "bound": p["bound"],
                      "sdpa_ms": p["sdpa_ms"]}
@@ -4136,7 +4232,10 @@ def phase_train_kernels(dev):
         for n, c in cases.items())
         + f"; host_us A={HOST['flash_attention_lse']:.1f} "
         f"B={HOST['flash_attention_bwd']:.1f} (A: flash_attention_lse, B: "
-        "flash_attention_bwd, sdpa_ms of B: SDPA's backward)")
+        "flash_attention_bwd, sdpa_ms of B: SDPA's backward); SDPA's "
+        f"backend at (192, 128): {cases['deepseek'].get('sdpa_backend')} "
+        "(forward and backward), its forward's kernels "
+        + json.dumps(cases["deepseek"].get("sdpa_kernels")))
     return rows, cases
 
 
@@ -4170,7 +4269,9 @@ def phase_train_small(dev, counts: dict):
     smollm, then the smoke configs of TRAIN_FAM_ARCHS (rwkv6, zamba2, the
     VLM, Whisper: the K5 / K6 forward and backward kernels in float32 and
     kernels A / B), whose attention key biases are left out of the
-    parameters held (SHIFT_INVARIANT).  The card steps' launches add to
+    parameters held (SHIFT_INVARIANT), and of TRAIN_MOE_ARCHS (deepseek's
+    MLA, grok's soft-capped GQA: kernels A / B in float32 with the MoE
+    dispatch; grok trains at this size only).  The card steps' launches add to
     ``counts``."""
     import functools
     from repro_torch.configs import get_smoke_config
@@ -4183,7 +4284,8 @@ def phase_train_small(dev, counts: dict):
     tol = TRAIN_SMALL_TOL
     sp = TRAIN_SMALL
     out = {}
-    for arch in TRAIN_SMALL_ARCHS + ("accum",) + TRAIN_FAM_ARCHS:
+    for arch in TRAIN_SMALL_ARCHS + ("accum",) + TRAIN_FAM_ARCHS \
+            + TRAIN_MOE_ARCHS:
         cfg = get_smoke_config(TRAIN_ARCH if arch == "accum" else arch)
         opt = adamw()
         sched = schedule(cfg.name, sp["lr"], 10)
@@ -4243,6 +4345,9 @@ def leaf_errors(got, want, stacked=("layers",), skip=()) -> dict:
         if isinstance(g, dict):
             for k in g:
                 walk(g[k], w[k], path + (k,))
+        elif isinstance(g, list):         # the MoE's dense_layers
+            for i, (gi, wi) in enumerate(zip(g, w)):
+                walk(gi, wi, path + (str(i),))
         elif path[-1] in skip or g.numel() == 0:
             return
         elif path[0] in stacked:
@@ -4421,6 +4526,11 @@ def phase_train_full(dev, counts: dict):
 # published width through ``launch.train.build``
 TRAIN_FAM_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "internvl2-2b",
                    "whisper-base")
+# the MoE family: both smoke configs in train-small; deepseek-v2-lite-16b at
+# its published widths in train-full-deepseek (grok-1's one MoE layer alone
+# is 4.8 B parameters: its smoke config only)
+TRAIN_MOE_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b")
+TRAIN_MOE_FULL = "deepseek-v2-lite-16b"
 SCAN_BWD_SOURCES = {"wkv6_bwd": "wkv6", "ssd_bwd": "ssd"}
 # (name, kind, B, T, H, N (K5) or P (K6), N (K6), dtype, strong decays[,
 # K6's heads a block]): the two main paths' training shapes (zamba2's with
@@ -4447,16 +4557,26 @@ SCAN_BWD_NAMES = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
 SCAN_BWD_TOL = TRAIN_GRAD_TOL
 # published-width training, (batch, sequence) a step: 8 x 2048 tokens;
 # the VLM's sequence is 256 patches + 1792 tokens; Whisper's 448 decoder
-# tokens a row after its 1500 frames
-TRAIN_FAM_FULL = {"rwkv6-1.6b": (8, 2048), "zamba2-1.2b": (8, 2048),
+# tokens a row after its 1500 frames; deepseek 4 x 4096 (DeepSeek-V2's
+# 4K pre-training context)
+TRAIN_FAM_FULL = {"deepseek-v2-lite-16b": (4, 4096),
+                  "rwkv6-1.6b": (8, 2048), "zamba2-1.2b": (8, 2048),
                   "internvl2-2b": (8, 2048), "whisper-base": (16, 448)}
 TRAIN_FAM_TIMED = 3         # full-depth steps timed, after a warm one
 # step 0 against the plain versions on the first layers at full width
 # (the plain scans step through time one step at a time): two, and for
 # zamba2 its first segment, six Mamba blocks and the shared attention's
-# first application (two blocks would have none)
-TRAIN_FAM_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "internvl2-2b": 2,
+# first application (two blocks would have none); deepseek its dense
+# layer and one MoE layer
+TRAIN_FAM_LAYERS = {"deepseek-v2-lite-16b": 2,
+                    "rwkv6-1.6b": 2, "zamba2-1.2b": 6, "internvl2-2b": 2,
                     "whisper-base": 2}
+# the full-depth steps' depth where the full depth does not fit one card:
+# deepseek's dense layer + 3 of its 26 MoE layers (~2.25 B parameters).
+# The port's AdamW builds new m and v trees a step, ~22 bytes a parameter
+# at its peak: 15.7 B parameters would take ~345 GB, 4 MoE layers ~74 GB
+# before activations (full depth waits for parameter sharding)
+TRAIN_FAM_DEPTH = {"deepseek-v2-lite-16b": 4}
 # step 0's leaf check (kernels vs plain versions, both bf16) also holds
 # each leaf to a float32 run of the plain versions: a leaf passes within
 # TRAIN_FULL_TOL["leaf"] of the plain bf16 gradient, or when the kernels'
@@ -4488,9 +4608,10 @@ def train_launches(cfg, seq: int) -> dict:
     each attention layer (Whisper: the encoder's, and the decoder's self
     and cross attention), the K5 / K6 forward once a forward and the
     backward once for each scan layer; with ``cfg.remat`` every
-    checkpointed block's forward runs twice (zamba2's shared attention is
-    not checkpointed).  bf16 scans at ``seq`` from CHUNKED_MIN_T on take
-    the chunked forward."""
+    checkpointed block's forward runs twice (zamba2's shared attention and
+    the MoE's leading dense layers are not checkpointed; bf16 MLA's
+    backward counts under ``flash_attention_bwd_mla``).  bf16 scans at
+    ``seq`` from CHUNKED_MIN_T on take the chunked forward."""
     from repro_torch.kernels.rwkv6_scan import ops as WK
     from repro_torch.kernels.ssm_scan import ops as SS
     from repro_torch.models import zamba2
@@ -4514,6 +4635,14 @@ def train_launches(cfg, seq: int) -> dict:
         if bf16 and seq >= SS.CHUNKED_MIN_T:
             out["ssd_chunked"] = out["ssd"]
         return out
+    if cfg.family == "moe":
+        from repro_torch.kernels.flash_attention import ops as FA
+        dense = cfg.first_dense_layers       # not checkpointed
+        d = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla \
+            else cfg.head_dim
+        dv = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
+        return {"flash_attention_lse": dense + fwd * (cfg.n_layers - dense),
+                FA.bwd_counter(cfg.jdtype, d, dv): cfg.n_layers}
     fail(f"train_launches: no training path for the {cfg.family} family")
 
 
@@ -4671,11 +4800,19 @@ def phase_train_family_full(dev, arch: str, counts: dict):
     plain versions than FAM_F32_RATIO times the plain bf16 gradient, and
     a planted fault (the first backward launch of the family's own kernel
     returning a zeroed dk, or dx for zamba2) above both.
+    The MoE (deepseek): its plain runs take the kernel run's expert
+    choices (``moe.top_experts`` patched for the span: the gates and the
+    renormalised weights from the run's own router input, the top-k
+    indices the kernel run's, call by call), since a bf16 near tie routed
+    otherwise would move whole experts' gradients; the choices the plain
+    runs' own routers would have flipped are counted.
     Then the full-depth model through ``launch.train.build`` (AdamW +
-    cosine, clip 1.0): one warm step and TRAIN_FAM_TIMED timed steps,
-    each step's launches held to ``train_launches``; median step ms,
-    tokens/s, peak memory; one more step traced
-    (``chiprun_out/profile_train_<family>.txt``)."""
+    cosine, clip 1.0), cut to TRAIN_FAM_DEPTH[arch] layers where listed
+    (``launch.train.get_config`` patched for the span): one warm step and
+    TRAIN_FAM_TIMED timed steps, each step's launches held to
+    ``train_launches``; median step ms, tokens/s, peak memory; one more
+    step traced (``chiprun_out/profile_train_<family>.txt``, deepseek's
+    ``profile_train_deepseek.txt``)."""
     import dataclasses
     import functools
     from repro_torch.configs import get_config
@@ -4686,6 +4823,7 @@ def phase_train_family_full(dev, arch: str, counts: dict):
     from repro_torch.kernels.ssm_scan import ops as SS
     from repro_torch.launch import train
     from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import moe as MO
     from repro_torch.models.base import count_params, get_family
     from repro_torch.optim import clip_by_global_norm
     bsz, seq = TRAIN_FAM_FULL[arch]
@@ -4707,15 +4845,48 @@ def phase_train_family_full(dev, arch: str, counts: dict):
             lambda p: fam.loss_fn(cfg2, p, b0), p2)
         return float(loss), g, float(clip_by_global_norm(g, 1.0)[1])
 
-    (loss_k, g_k, gn_k), c0 = counted(grads_of)
+    moe = full.family == "moe"
+    routes, flips = [], {"plain": 0, "f32": 0, "choices": 0}
+    real_top = MO.top_experts
+
+    def keep_route(cfg, p, x2d):          # the kernel run's choices
+        out = real_top(cfg, p, x2d)
+        routes.append(out[1])
+        return out
+
+    def forced(run: str):
+        """``top_experts`` with the kernel run's indices, call by call;
+        counts the (layer, token) choices of the forward whose own top-k
+        set differs."""
+        calls = []
+
+        def top(cfg, p, x2d):
+            gates, own, _ = real_top(cfg, p, x2d)
+            topi = routes[len(calls)]
+            if len(calls) < n_moe:        # the forward's calls come first
+                differ = (own.sort(-1).values
+                          != topi.sort(-1).values).any(-1)
+                flips[run] += int(differ.sum())
+                flips["choices"] += int(differ.numel()) if run == "plain" \
+                    else 0
+            calls.append(1)
+            topv = gates.gather(-1, topi)
+            return gates, topi, topv / topv.sum(-1, keepdim=True) \
+                .clamp_min(1e-9)
+        return [(MO, "top_experts", top)] if moe else []
+    n_moe = cfg2.n_layers - cfg2.first_dense_layers if moe else 0
+
+    with patched_attrs([(MO, "top_experts", keep_route)] if moe else []):
+        (loss_k, g_k, gn_k), c0 = counted(grads_of)
     hold_counts(f"train-full {arch} step 0 ({n_cut} layers)", c0,
                 train_launches(cfg2, seq))
     ref = lambda f: functools.partial(f, impl="ref")  # noqa: E731
-    with patched_attrs([
-            (FA, "flash_attention_lse", ref(FA.flash_attention_lse)),
-            (FA, "flash_attention_bwd", ref(FA.flash_attention_bwd)),
-            (WK, "wkv6", ref(WK.wkv6)), (SS, "ssd", ref(SS.ssd))]):
+    plain = [(FA, "flash_attention_lse", ref(FA.flash_attention_lse)),
+             (FA, "flash_attention_bwd", ref(FA.flash_attention_bwd)),
+             (WK, "wkv6", ref(WK.wkv6)), (SS, "ssd", ref(SS.ssd))]
+    with patched_attrs(plain + forced("plain")):
         loss_p, g_p, gn_p = grads_of()
+    with patched_attrs(plain + forced("f32")):
         c32 = dataclasses.replace(cfg2, dtype="float32")
         p32 = tree_map(lambda z: z.float(), p2)
         g_32 = value_and_grad(lambda p: fam.loss_fn(c32, p, b0), p32)[1]
@@ -4763,10 +4934,16 @@ def phase_train_family_full(dev, arch: str, counts: dict):
     del p2, g_k, g_p, g_bad, g_32, b0
     torch.cuda.empty_cache()
 
-    cfg, step_fn, params, opt0, dcfg = train.build(
-        arch, False, bsz, seq, 3e-4, 10, device=dev)
-    if not (cfg.remat and cfg.jdtype == torch.bfloat16):
-        fail(f"train-full {arch}: {cfg.name} is not bf16 / remat")
+    depth = TRAIN_FAM_DEPTH.get(arch, full.n_layers)
+    cut_cfg = lambda a: dataclasses.replace(get_config(a),  # noqa: E731
+                                            n_layers=depth)
+    with patched_attrs([(train, "get_config", cut_cfg)]):
+        cfg, step_fn, params, opt0, dcfg = train.build(
+            arch, False, bsz, seq, 3e-4, 10, device=dev)
+    if not (cfg.remat and cfg.jdtype == torch.bfloat16
+            and cfg.n_layers == depth):
+        fail(f"train-full {arch}: {cfg.name} is not bf16 / remat at "
+             f"{depth} layers")
     want = train_launches(cfg, seq)
     batches = [synthetic_batch(cfg, dcfg, s)
                for s in range(TRAIN_FAM_TIMED + 1)]
@@ -4788,15 +4965,16 @@ def phase_train_family_full(dev, arch: str, counts: dict):
     if not all(math.isfinite(x) for x in losses):
         fail(f"train-full {arch}: losses {losses}")
     # one step traced (after the timed ones): where it goes
+    tag = "deepseek" if moe else cfg.family
     prof, lines = profile_one(f"train step {cfg.name} {bsz} x {seq}",
                               lambda: step_fn(p, o, batches[0]), warm=False)
-    write_out(f"profile_train_{cfg.family}.txt", lines)
+    write_out(f"profile_train_{tag}.txt", lines)
     del p, o
     torch.cuda.empty_cache()
     step_s = statistics.median(secs)
     toks = bsz * seq
-    res = {"params": n_params, "batch": [bsz, seq],
-           "step0_layers": n_cut, "step0": {
+    res = {"params": n_params, "batch": [bsz, seq], "layers": depth,
+           "step0_layers": n_cut, "step0_route_flips": flips, "step0": {
                "loss": loss_k, "loss_plain": loss_p, "grad_norm": gn_k,
                "grad_norm_plain": gn_p, "worst_leaf": worst,
                "worst_leaf_err": errs, "worst_leaf_excess": ex[worst],
@@ -4805,22 +4983,33 @@ def phase_train_family_full(dev, arch: str, counts: dict):
            "median_step_ms": 1e3 * step_s, "tokens_per_s": toks / step_s,
            "peak_mem_bytes": peak, "launches_per_step": want,
            "losses": losses, "profile": prof}
-    say(f"train-full-{cfg.family} {cfg.name} ({n_params:,} parameters, "
+    say(f"train-full-{tag} {cfg.name} ({n_params:,} parameters, "
         f"bf16, remat) batch {bsz} x {seq}"
+        + (f", {depth} of {full.n_layers} layers (the dense layer + "
+           f"{depth - full.first_dense_layers} MoE; full depth does not "
+           "fit one card)" if depth != full.n_layers else "")
         + (f" after {cfg.enc_seq} frames" if cfg.family == "whisper" else "")
         + (f" ({cfg.n_patches} patches + {seq - cfg.n_patches} tokens)"
            if cfg.family == "vlm" else "")
-        + f": step 0 on {n_cut} layers kernels vs plain loss "
+        + (f": step 0 on {n_cut} layers with the kernel run's expert "
+           f"choices forced in the plain runs (their own routers would "
+           f"have flipped {flips['plain']} (bf16) / {flips['f32']} "
+           f"(float32) of {flips['choices']} (layer, token) choices)"
+           if moe else f": step 0 on {n_cut} layers")
+        + " kernels vs plain loss "
         f"{loss_k:.6f} / {loss_p:.6f}, grad norm {gn_k:.5f} / {gn_p:.5f}, "
         f"worst leaf {worst} vs plain {errs['vs_plain']:.2e}, vs float32 "
         f"{errs['vs_f32']:.2e} (plain {errs['plain_vs_f32']:.2e}), excess "
         f"{ex[worst]:.2f}, farthest from plain {far} "
         f"{far_errs['vs_plain']:.2e} (vs float32 {far_errs['vs_f32']:.2e}, "
         f"plain {far_errs['plain_vs_f32']:.2e}) (planted {planted:.2f}; limits "
-        f"{json.dumps(tol)}, FAM_F32_RATIO {FAM_F32_RATIO}); full depth: "
-        f"median step "
+        f"{json.dumps(tol)}, FAM_F32_RATIO {FAM_F32_RATIO}); "
+        + ("full depth" if depth == full.n_layers else f"{depth} layers")
+        + ": median step "
         f"{res['median_step_ms']:.1f} ms, {res['tokens_per_s']:,.0f} "
-        f"tokens/s, peak {peak / 2**30:.2f} GiB, losses "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB"
+        + (f" (AdamW over {n_params:,} parameters)" if moe else "")
+        + ", losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f"; launches a step {json.dumps(want)}")
     return res
@@ -4920,6 +5109,10 @@ SOURCES = {
                             "src/repro/kernels/flash_attention/kernel.py:74"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/layers.py:211"),
+    # kernel B at MLA's (192, 128): the two-warpgroup dK / dV kernel
+    "flash_attention_bwd_mla": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:211"),
     "wkv6_step": ("src/repro_torch/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:69"),
     "ssd_step": ("src/repro_torch/csrc/ssm_scan.cu",
@@ -5087,7 +5280,7 @@ def main() -> int:
     with clock("train_full"):
         train_full = phase_train_full(dev, train_counts)
     train_fam = {}
-    for arch in TRAIN_FAM_ARCHS:      # the other families at full width
+    for arch in TRAIN_FAM_ARCHS + (TRAIN_MOE_FULL,):   # at full width
         with clock("train_full_" + arch.split("-")[0]):
             train_fam[arch] = phase_train_family_full(dev, arch,
                                                       train_counts)

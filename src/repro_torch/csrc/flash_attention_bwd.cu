@@ -43,10 +43,13 @@
 // of q, k, v, out, dout, dq, dk, dv and lse: 0.098 ms at the 989 TFLOP/s
 // bf16 tensor-core peak against 0.030 ms at the memory rate.  The kernels
 // compute 7 D a pair on whole 64 x 64 tiles (the diagonal tiles in full):
-// 140 GFLOP, 0.14 ms at the peak.
+// 140 GFLOP, 0.14 ms at the peak.  At deepseek-v2-lite's ([4, 4096, 16,
+// 192 / 128]) products over D take 2 x 192 flops a pair and those over Dv
+// 2 x 128: 2 (3 x 192 + 2 x 128) x 537 M pairs, 0.89 TFLOP, 0.90 ms.
 //
 // bfloat16, fa_bwd_dkdv_wgmma_kernel<D, DV> / fa_bwd_dq_wgmma_kernel<D, DV>,
-// (D, Dv) in {(64, 64), (80, 80), (128, 128)}: every product on the tensor
+// (D, Dv) in {(64, 64), (80, 80), (128, 128)}, and their two-warpgroup
+// forms at (192, 128) (below): every product on the tensor
 // cores, wgmma m64nNk16 with float32 accumulators, one warpgroup (128
 // threads) a block.  One thread starts every copy by TMA (hopper_mma.cuh:
 // 4-D tensor maps of q, k, v and dout, passed by value as __grid_constant__
@@ -80,6 +83,16 @@
 //   float32 accumulators a thread (64 at D = 64, 128 at D = 80 and 128),
 //   S^T and dP^T 32 each, their packed bf16 fragments 16 each (ptxas's
 //   counts are on chip_smoke.py's ptxas line).
+//   MLA's (192, 128) (deepseek-v2's training attention): one warpgroup
+//   would need 96 + 64 accumulators for dK and dV besides S^T and dP^T,
+//   and its tiles (K 24 KB + V 16 KB resident, two streamed pairs) hold
+//   one block an SM, four warps.  So both kernels take two warpgroups a
+//   block (eight warps an SM), with the same tiles, TMA ring and rounding:
+//   fa_bwd_dkdv_wgmma2_kernel splits the products by gradient (warpgroup
+//   0: S^T, P^T, dV += P^T dO; warpgroup 1: dP^T, dS^T from P^T handed
+//   over through shared memory, dK += dS^T Q, wgmma N = 192), and
+//   fa_bwd_dq_wgmma2_kernel gives each warpgroup one of two adjacent query
+//   blocks on shared K / V tiles.  Both meet at named barriers.
 //
 // float32, fa_bwd_dkdv_kernel<float, DP> / fa_bwd_dq_kernel<float, DP> (Dv
 // <= D <= 128, D padded to DP = 16, 32, 64 or 128: the smoke models, whose
@@ -187,21 +200,29 @@ __device__ __forceinline__ void dot_tile(float (&s)[4][4], const float* a,
   }
 }
 
-// p and ds of one (row, key) pair from its raw dot products s (Q K^T) and
-// dp (dO V^T), in place, given the row's lse (log2 domain) and delta;
-// `keep` false masks the pair.
-__device__ __forceinline__ void pair_p_ds(float& s, float& dp, float lse2,
-                                          float dlt, bool keep, float scale,
-                                          float cap) {
+// p of one pair (into s, from its raw dot product Q K^T) given the row's
+// lse (log2 domain), and the soft cap's derivative its dS takes (1 without
+// a cap); `keep` false masks the pair.
+__device__ __forceinline__ float pair_p(float& s, float lse2, bool keep,
+                                        float scale, float cap) {
   float x = s * scale, dcap = 1.0f;
   if (cap > 0.0f) {
     x = cap * tanhf(x / cap);
     const float t = x / cap;
     dcap = 1.0f - t * t;
   }
-  const float p = keep ? exp2f(x * LOG2E - lse2) : 0.0f;
-  s = p;
-  dp = p * (dp - dlt) * dcap;
+  s = keep ? exp2f(x * LOG2E - lse2) : 0.0f;
+  return dcap;
+}
+
+// p and ds of one (row, key) pair from its raw dot products s (Q K^T) and
+// dp (dO V^T), in place, given the row's lse (log2 domain) and delta;
+// `keep` false masks the pair.
+__device__ __forceinline__ void pair_p_ds(float& s, float& dp, float lse2,
+                                          float dlt, bool keep, float scale,
+                                          float cap) {
+  const float dcap = pair_p(s, lse2, keep, scale, cap);
+  dp = s * (dp - dlt) * dcap;
 }
 
 // P and dS of the thread's 4 x 4 pairs (rows q0 + ty + 16 i, keys k0 + tx
@@ -573,15 +594,19 @@ constexpr int NST = 2;     // stages of the streamed tiles' ring
 // Columns in shared memory: D and Dv rounded up to whole 64-column atoms.
 // A "pair" is a D-wide tile (Q or K) and a Dv-wide one (dO or V) of 64 rows:
 // one pair stays for the block's life, NST pairs stream.
+// D past 128 (MLA's 192) takes the dK / dV kernel of two warpgroups.
 template <int D, int DV>
 struct WgShape {
   static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int DVP = (DV + 63) / 64 * 64;
-  static_assert(DP == 64 || DP == 128, "dK / dQ is wgmma N = 64 or 128");
+  static_assert(DP == 64 || DP == 128 || DP == 192,
+                "dK / dQ is wgmma N = 64, 128 or 192");
   static_assert(DVP == 64 || DVP == 128, "dV is wgmma N = 64 or 128");
+  static_assert(DVP <= DP, "Dv <= D");
   static constexpr int ATILE = WT * DP * 2;       // bytes of a Q or K tile
   static constexpr int PAIR = ATILE + WT * DVP * 2;
   static constexpr int SMEM = (1 + NST) * PAIR + 1024;   // + alignment
+  static constexpr bool SPLIT = DP > 128;         // fa_bwd_dkdv_wgmma2_kernel
 };
 
 // acc (64 x 64) = A B^T over the first D columns of two 64-row tiles in
@@ -607,7 +632,8 @@ __device__ __forceinline__ void mma_rs(float (&acc)[N],
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = sw128_desc(sb + kk * 16 * 128, WT * 128, 1024);
     if constexpr (N == 32) wgmma_rs_n64(acc, a[kk], db);
-    else wgmma_rs_n128(acc, a[kk], db);
+    else if constexpr (N == 64) wgmma_rs_n128(acc, a[kk], db);
+    else wgmma_rs_n192(acc, a[kk], db);
   }
 }
 
@@ -793,6 +819,207 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
              acc_v, 1.0f, row_a, sk - k0, DV, lane);
 }
 
+// Named barriers of the two-warpgroup kernels, whose warpgroups reach
+// them from code of their own: id 1 ends an iteration (both wait), id 2
+// hands P over (warpgroup 0 arrives, warpgroup 1 waits).
+__device__ __forceinline__ void sync_two_groups() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(2 * WTHREADS) : "memory");
+}
+__device__ __forceinline__ void arrive_handover() {
+  asm volatile("bar.arrive 2, %0;\n" ::"r"(2 * WTHREADS) : "memory");
+}
+__device__ __forceinline__ void wait_handover() {
+  asm volatile("bar.sync 2, %0;\n" ::"r"(2 * WTHREADS) : "memory");
+}
+
+// dK / dV at D past 128 (MLA's (192, 128)), where one warpgroup cannot
+// hold both sums (64 x 192 and 64 x 128 float32: 160 accumulators a
+// thread before S^T and dP^T).  One block per (b * Hkv + kv head, 64-key
+// block), the same tiles, ring and order as fa_bwd_dkdv_wgmma_kernel, two
+// warpgroups on the same keys, each holding one sum and computing half of
+// the products (D + Dv multiply-adds a visible pair each):
+//   warpgroup 0: S^T = K Q^T, P^T in registers and to shared memory for
+//     warpgroup 1; dV += P^T dO;
+//   warpgroup 1: dP^T = V dO^T; waits for P^T, forms dS^T; dK += dS^T Q.
+// P^T goes over as float32 in the accumulators' own layout (thread t of
+// one group reads what thread t of the other wrote: 16 KB, no bank
+// conflict), with the soft cap's derivative beside it under a cap, so dS
+// is pair_p_ds's to the bit.  Warpgroup 0's threads keep the rows' lse
+// and delta buffer; the groups meet at the end of each iteration (the
+// stage may then be refilled, the next rows are in, the P buffer is
+// free).
+template <int D, int DV>
+struct Wg2Shape {
+  static constexpr int PX = 2 * WT * WT * 4;   // P^T and the cap's term
+  static constexpr int SMEM = WgShape<D, DV>::SMEM + PX;
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(2 * WTHREADS)
+fa_bwd_dkdv_wgmma2_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                          int seq_k, int h, int hkv, int causal,
+                          int q_offset, float scale, float cap) {
+  using S = WgShape<D, DV>;
+  constexpr int DP = S::DP, DVP = S::DVP, ATILE = S::ATILE, PAIR = S::PAIR;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + NST];   // K / V, then the ring
+  __shared__ float rows[2][2 * WT];   // lse (log2) then delta, two buffers
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u, s_v = s_k + ATILE;
+  const uint32_t s_ring = s_k + PAIR;   // stage i: Q at + i PAIR, dO + ATILE
+  // P^T hand-over after the ring: element i of thread t at [i][t], then
+  // the cap's derivative likewise
+  float* px = reinterpret_cast<float*>(smem_raw + (s_ring - raw)
+                                       + NST * PAIR);
+  float* pc = px + WT * WT;
+  const uint32_t bar_kv = (uint32_t)__cvta_generic_to_shared(bars);
+  const uint32_t bar_ring = bar_kv + 8;
+  const int tid = threadIdx.x, wg = tid / WTHREADS, wt = tid % WTHREADS;
+  const int warp = wt >> 5, lane = tid & 31;
+  const int bk = blockIdx.x, b = bk / hkv, kvh = bk % hkv;
+  const int k0 = blockIdx.y * WT;
+  const int g = h / hkv;
+  const int k_valid = seq_k < sk ? seq_k : sk;
+
+  int qb0 = 0;   // iteration it: head kvh * g + it / per, block qb0 + it % per
+  if (causal) {
+    const long long first = (long long)k0 - q_offset;
+    qb0 = first <= 0 ? 0 : (int)(first / WT);
+  }
+  const int nqb = (sq + WT - 1) / WT;
+  const int per = (k0 < k_valid && qb0 < nqb) ? nqb - qb0 : 0;
+  const int n_it = g * per;
+
+  auto fetch = [&](int it) {   // Q and dO of iteration it, on its stage
+    const int hh = kvh * g + it / per, q0 = (qb0 + it % per) * WT;
+    const uint32_t bar = bar_ring + (it % NST) * 8;
+    const uint32_t dst = s_ring + (it % NST) * PAIR;
+    mbar_expect(bar, PAIR);
+    tma_tile<DP, WT>(dst, &map_q, bar, hh, q0, b);
+    tma_tile<DVP, WT>(dst + ATILE, &map_do, bar, hh, q0, b);
+  };
+  // warpgroup 0's thread t: iteration it's lse of row t (log2 domain, +inf
+  // past Sq) for t < 64, delta of row t - 64 after
+  auto row_value = [&](int it) {
+    const int hh = kvh * g + it / per;
+    const int qi = (qb0 + it % per) * WT + (wt & (WT - 1));
+    const size_t at = ((size_t)b * h + hh) * sq + qi;
+    if (wt < WT) return qi < sq ? lse[at] * LOG2E : INFINITY;
+    return qi < sq ? delta[at] : 0.0f;
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + NST; ++i) mbar_init(bar_kv + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_it > 0) {
+      mbar_expect(bar_kv, PAIR);
+      tma_tile<DP, WT>(s_k, &map_k, bar_kv, kvh, k0, b);
+      tma_tile<DVP, WT>(s_v, &map_v, bar_kv, kvh, k0, b);
+      for (int it = 0; it < NST - 1 && it < n_it; ++it) fetch(it);
+    }
+  }
+  if (n_it > 0 && wg == 0) rows[0][wt] = row_value(0);
+  __syncthreads();
+
+  const int row_a = warp * 16 + (lane >> 2);   // keys k0 + row_a, + 8
+  const int kj_a = k0 + row_a, kj_b = kj_a + 8;
+  if (n_it > 0) mbar_wait(bar_kv, 0);
+
+  if (wg == 0) {   // S^T, P^T, dV
+    float acc_v[DVP / 2];
+    zero(acc_v);
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (qb0 + it % per) * WT;
+      const uint32_t s_q = s_ring + (it % NST) * PAIR, s_do = s_q + ATILE;
+      if (tid == 0 && it + NST - 1 < n_it) fetch(it + NST - 1);
+      const float next = it + 1 < n_it ? row_value(it + 1) : 0.0f;
+      mbar_wait(bar_ring + (it % NST) * 8, (it / NST) & 1);
+
+      float s[32];
+      zero(s);
+      fence_regs(s);
+      wgmma_fence();
+      mma_ss<D>(s, s_k, s_q);      // S^T = K Q^T   (keys x rows)
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      // P^T: accumulator i is key (i & 2 ? kj_b : kj_a) and query row q0
+      // + r; masks only where the tile straddles a limit
+      const float* lse2 = rows[it & 1];
+      const bool edge = k0 + WT > k_valid
+                        || (causal && (long long)k0 + WT - 1 > (long long)q0
+                                                                + q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const int kj = (i & 2) ? kj_b : kj_a;
+        const bool keep = !edge
+            || (kj < k_valid
+                && !(causal && (long long)(q0 + r) + q_offset < kj));
+        const float dcap = pair_p(s[i], lse2[r], keep, scale, cap);
+        px[i * WTHREADS + wt] = s[i];
+        if (cap > 0.0f) pc[i * WTHREADS + wt] = dcap;
+      }
+      arrive_handover();
+      uint32_t ap[4][4];
+      to_frags(ap, s);
+      fence_regs(acc_v);
+      wgmma_fence();
+      mma_rs(acc_v, ap, s_do);     // dV += P^T dO
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc_v);
+      if (it + 1 < n_it) rows[(it + 1) & 1][wt] = next;
+      sync_two_groups();
+    }
+    const size_t v_ld = (size_t)hkv * DV;
+    store_rows(dv + ((size_t)b * sk + k0) * v_ld + (size_t)kvh * DV, v_ld,
+               acc_v, 1.0f, row_a, sk - k0, DV, lane);
+  } else {         // dP^T, dS^T, dK
+    float acc_k[DP / 2];
+    zero(acc_k);
+    for (int it = 0; it < n_it; ++it) {
+      const uint32_t s_q = s_ring + (it % NST) * PAIR, s_do = s_q + ATILE;
+      mbar_wait(bar_ring + (it % NST) * 8, (it / NST) & 1);
+
+      float dp[32];
+      zero(dp);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_ss<DV>(dp, s_v, s_do);   // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dp);
+      const float* dlt = rows[it & 1] + WT;
+      wait_handover();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {   // pair_p_ds's dS
+        const int r = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const float dcap = cap > 0.0f ? pc[i * WTHREADS + wt] : 1.0f;
+        dp[i] = px[i * WTHREADS + wt] * (dp[i] - dlt[r]) * dcap;
+      }
+      uint32_t ads[4][4];
+      to_frags(ads, dp);
+      fence_regs(acc_k);
+      wgmma_fence();
+      mma_rs(acc_k, ads, s_q);     // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc_k);
+      sync_two_groups();
+    }
+    const size_t k_ld = (size_t)hkv * D;
+    store_rows(dk + ((size_t)b * sk + k0) * k_ld + (size_t)kvh * D, k_ld,
+               acc_k, scale, row_a, sk - k0, D, lane);
+  }
+}
+
 // One block per (b * H + h, 64-row query block), the last blocks first.
 template <int D, int DV>
 __global__ void __launch_bounds__(WTHREADS)
@@ -908,21 +1135,176 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
              scale, row_a, sq - q0, D, lane);
 }
 
+// dQ at D past 128: one block per (b * H + h, pair of 64-row query
+// blocks), the last pairs first, each warpgroup one query block of the
+// pair with its Q and dO resident, both on the same K / V tiles from one
+// ring (two warpgroups an SM where fa_bwd_dq_wgmma_kernel's 121 KB would
+// hold one, and each K / V tile loaded once for 128 rows).  Each
+// warpgroup runs fa_bwd_dq_wgmma_kernel's loop body on the tiles its rows
+// see and waits out the rest (the pair's later block sees at most one
+// tile more under causal); the groups meet at the end of each tile.
+template <int D, int DV>
+struct Dq2Shape {
+  static constexpr int SMEM = (2 + NST) * WgShape<D, DV>::PAIR + 1024;
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(2 * WTHREADS)
+fa_bwd_dq_wgmma2_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                        int seq_k, int h, int hkv, int causal, int q_offset,
+                        float scale, float cap) {
+  using S = WgShape<D, DV>;
+  constexpr int DP = S::DP, DVP = S::DVP, ATILE = S::ATILE, PAIR = S::PAIR;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + NST];   // Q / dO, then the ring
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t s_q0 = (raw + 1023) & ~1023u;      // group w: + w PAIR
+  const uint32_t s_ring = s_q0 + 2 * PAIR;   // stage i: K at + i PAIR, V +
+  const uint32_t bar_q = (uint32_t)__cvta_generic_to_shared(bars);
+  const uint32_t bar_ring = bar_q + 8;
+  const int tid = threadIdx.x, wg = tid / WTHREADS, wt = tid % WTHREADS;
+  const int warp = wt >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int kvh = hh / (h / hkv);
+  const int pair0 = (gridDim.y - 1 - blockIdx.y) * 2 * WT;
+  const int q0 = pair0 + wg * WT;              // this group's rows
+  const uint32_t s_q = s_q0 + wg * PAIR, s_do = s_q + ATILE;
+
+  // keys a query block sees: below seq_k_valid and, causal, at or below
+  // its last row's position; none for a block past Sq
+  const int k_valid = seq_k < sk ? seq_k : sk;
+  auto tiles_of = [&](int r0) {
+    if (r0 >= sq) return 0;
+    int k_end = k_valid;
+    if (causal) {
+      const long long last = (long long)min(r0 + WT, sq) - 1 + q_offset;
+      if (last + 1 < k_end) k_end = (int)(last + 1 > 0 ? last + 1 : 0);
+    }
+    return (k_end + WT - 1) / WT;
+  };
+  const int mine = tiles_of(q0);
+  const int n_tiles = max(tiles_of(pair0), tiles_of(pair0 + WT));
+
+  auto fetch = [&](int t) {   // K and V of tile t, on its stage
+    const uint32_t bar = bar_ring + (t % NST) * 8;
+    const uint32_t dst = s_ring + (t % NST) * PAIR;
+    mbar_expect(bar, PAIR);
+    tma_tile<DP, WT>(dst, &map_k, bar, kvh, t * WT, b);
+    tma_tile<DVP, WT>(dst + ATILE, &map_v, bar, kvh, t * WT, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + NST; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) {
+      mbar_expect(bar_q, 2 * PAIR);
+      for (int w = 0; w < 2; ++w) {
+        tma_tile<DP, WT>(s_q0 + w * PAIR, &map_q, bar_q, hh, pair0 + w * WT,
+                         b);
+        tma_tile<DVP, WT>(s_q0 + w * PAIR + ATILE, &map_do, bar_q, hh,
+                          pair0 + w * WT, b);
+      }
+      for (int t = 0; t < NST - 1 && t < n_tiles; ++t) fetch(t);
+    }
+  }
+  __syncthreads();
+
+  const int row_a = warp * 16 + (lane >> 2);   // rows q0 + row_a, + 8
+  const int qi_a = q0 + row_a, qi_b = qi_a + 8;
+  const size_t base = ((size_t)b * h + hh) * sq;
+  // lse (log2 domain; +inf past Sq, so p = 0 there) and delta of the rows
+  const float lse_a = qi_a < sq ? lse[base + qi_a] * LOG2E : INFINITY;
+  const float lse_b = qi_b < sq ? lse[base + qi_b] * LOG2E : INFINITY;
+  const float dlt_a = qi_a < sq ? delta[base + qi_a] : 0.0f;
+  const float dlt_b = qi_b < sq ? delta[base + qi_b] : 0.0f;
+  float acc[DP / 2];
+  zero(acc);
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * WT;
+    const uint32_t s_k = s_ring + (t % NST) * PAIR, s_v = s_k + ATILE;
+    if (tid == 0 && t + NST - 1 < n_tiles) fetch(t + NST - 1);
+    mbar_wait(bar_ring + (t % NST) * 8, (t / NST) & 1);
+    if (t < mine) {
+      float s[32], dp[32];
+      zero(s);
+      zero(dp);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_ss<D>(s, s_q, s_k);      // S = Q K^T   (rows x keys)
+      mma_ss<DV>(dp, s_do, s_v);   // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool edge = k0 + WT > k_valid
+                        || (causal && (long long)k0 + WT - 1 > (long long)q0
+                                                                + q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kj = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const bool hi = (i & 2) != 0;
+        const int qi = hi ? qi_b : qi_a;
+        const bool keep = !edge
+            || (kj < k_valid && !(causal && (long long)qi + q_offset < kj));
+        pair_p_ds(s[i], dp[i], hi ? lse_b : lse_a, hi ? dlt_b : dlt_a, keep,
+                  scale, cap);
+      }
+      uint32_t ads[4][4];
+      to_frags(ads, dp);
+      fence_regs(acc);
+      wgmma_fence();
+      mma_rs(acc, ads, s_k);       // dQ += dS K
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+    }
+    sync_two_groups();   // this stage may be refilled
+  }
+
+  const size_t q_ld = (size_t)h * D;
+  store_rows(dq + ((size_t)b * sq + q0) * q_ld + (size_t)hh * D, q_ld, acc,
+             scale, row_a, sq - q0, D, lane);
+}
+
 template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* out, const void* dout, const float* lse,
                  float* delta, void* dq, void* dk, void* dv, int b, int sq,
                  int sk, int seq_k, int h, int hkv, int causal, int q_offset,
                  float scale, float cap, cudaStream_t stream) {
+  // D past 128: the two-warpgroup kernels, with shared memory of their own
+  constexpr bool SPLIT = WgShape<D, DV>::SPLIT;
   constexpr int SMEM = WgShape<D, DV>::SMEM;
+  constexpr int KV_SMEM = SPLIT ? Wg2Shape<D, DV>::SMEM : SMEM;
+  constexpr int Q_SMEM = SPLIT ? Dq2Shape<D, DV>::SMEM : SMEM;
   static cudaError_t attr = [] {      // once per (D, DV)
-    cudaError_t e = cudaFuncSetAttribute(
-        fa_bwd_dkdv_wgmma_kernel<D, DV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(fa_bwd_dq_wgmma_kernel<D, DV>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                SMEM);
+    cudaError_t e;
+    if constexpr (SPLIT) {
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma2_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               KV_SMEM);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(fa_bwd_dq_wgmma2_kernel<D, DV>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  Q_SMEM);
+    } else {
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(fa_bwd_dq_wgmma_kernel<D, DV>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEM);
+    }
   }();
   if (attr != cudaSuccess) return (int)attr;
   const long long rows = (long long)b * sq * h;
@@ -944,16 +1326,29 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                                         rows, sq, h, DV);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv_wgmma_kernel<D, DV>
-      <<<dim3((unsigned)(b * hkv), (unsigned)kblocks), WTHREADS, SMEM,
-          stream>>>(mq, mk, mv, mdo, lse, delta, (T*)dk, (T*)dv, sq, sk,
-                    seq_k, h, hkv, causal, q_offset, scale, cap);
+  const dim3 kv_grid((unsigned)(b * hkv), (unsigned)kblocks);
+  if constexpr (SPLIT)
+    fa_bwd_dkdv_wgmma2_kernel<D, DV>
+        <<<kv_grid, 2 * WTHREADS, KV_SMEM, stream>>>(
+            mq, mk, mv, mdo, lse, delta, (T*)dk, (T*)dv, sq, sk, seq_k, h,
+            hkv, causal, q_offset, scale, cap);
+  else
+    fa_bwd_dkdv_wgmma_kernel<D, DV><<<kv_grid, WTHREADS, SMEM, stream>>>(
+        mq, mk, mv, mdo, lse, delta, (T*)dk, (T*)dv, sq, sk, seq_k, h, hkv,
+        causal, q_offset, scale, cap);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dq_wgmma_kernel<D, DV>
-      <<<dim3((unsigned)(b * h), (unsigned)qblocks), WTHREADS, SMEM,
-          stream>>>(mq, mk, mv, mdo, lse, delta, (T*)dq, sq, sk, seq_k, h,
-                    hkv, causal, q_offset, scale, cap);
+  if constexpr (SPLIT)
+    fa_bwd_dq_wgmma2_kernel<D, DV>
+        <<<dim3((unsigned)(b * h), (unsigned)((qblocks + 1) / 2)),
+           2 * WTHREADS, Q_SMEM, stream>>>(
+            mq, mk, mv, mdo, lse, delta, (T*)dq, sq, sk, seq_k, h, hkv,
+            causal, q_offset, scale, cap);
+  else
+    fa_bwd_dq_wgmma_kernel<D, DV>
+        <<<dim3((unsigned)(b * h), (unsigned)qblocks), WTHREADS, SMEM,
+            stream>>>(mq, mk, mv, mdo, lse, delta, (T*)dq, sq, sk, seq_k, h,
+                      hkv, causal, q_offset, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -997,7 +1392,7 @@ extern "C" int flash_attention_bwd_f32(
 }
 
 // bfloat16 on the tensor cores: (d, dv) in {(64, 64), (80, 80), (128,
-// 128)}; q, k, v and dout 16-byte aligned.
+// 128), (192, 128)}; q, k, v and dout 16-byte aligned.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1013,6 +1408,7 @@ extern "C" int flash_attention_bwd_bf16(
                                (float*)delta, dq, dk, dv, b, sq, sk, seq_k,  \
                                h, hkv, causal, q_offset, scale, cap, s);
   BWD_WG_CASE(64, 64) BWD_WG_CASE(80, 80) BWD_WG_CASE(128, 128)
+  BWD_WG_CASE(192, 128)
 #undef BWD_WG_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,10 @@ row's logsumexp (``[B, H, Sq]`` float32, natural log), and the backward
 kernels of ``csrc/flash_attention_bwd.cu`` (the counterpart of the JAX
 package's custom VJP ``_core_bwd``, no atomics) give dq, dk, dv from it:
 in bfloat16 on the tensor cores (wgmma fed by TMA, P and dS rounded to
-bf16 before the products; (q/k, v) head dims in ``BWD_BF16_HEAD_DIMS``),
-in float32 as IEEE float32 FFMA (v head dim <= q/k head dim <= 128).
+bf16 before the products; (q/k, v) head dims in ``BWD_BF16_HEAD_DIMS``,
+the forward's: MLA's (192, 128) takes kernels of two warpgroups, dK / dV
+with one group holding dV and one dK, dQ with one query block each), in
+float32 as IEEE float32 FFMA (v head dim <= q/k head dim <= 128).
 Their plain versions are ``ref.py``'s copies of ``_blocked_fwd`` /
 ``_core_bwd``.  ``flash_attention`` has no
 backward: under grad mode with an input that requires grad, its CUDA path
@@ -33,7 +35,8 @@ failed launch raises.  ``launches`` counts each kernel's launches; the
 bf16 launches whose v head dim differs from q's (MLA) count under
 ``flash_attention_bf16_mla``; the forward launches that write the
 logsumexp count under ``flash_attention_lse`` only, and each backward call
-(three kernels) once under ``flash_attention_bwd``.
+(three kernels) once under ``flash_attention_bwd``, or under
+``flash_attention_bwd_mla`` in bfloat16 where the v head dim differs.
 """
 from __future__ import annotations
 
@@ -47,16 +50,16 @@ from repro_torch.kernels.flash_attention import ref as R
 
 launches = {"flash_attention": 0, "flash_attention_bf16": 0,
             "flash_attention_bf16_mla": 0, "flash_attention_lse": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_mla": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_D = 128
 # (q / k head dim, v head dim): the dense, zamba2, whisper and internvl2
 # heads, and deepseek-v2's MLA (qk_nope 128 + qk_rope 64, v 128)
 BF16_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
-# the bf16 backward's: the forward's less MLA's (192, 128), whose D is past
-# the backward's 128
-BWD_BF16_HEAD_DIMS = ((64, 64), (80, 80), (128, 128))
+# the bf16 backward's: the forward's (MLA's (192, 128) on the kernel of two
+# warpgroups)
+BWD_BF16_HEAD_DIMS = BF16_HEAD_DIMS
 # dtype -> C entry point
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -71,6 +74,13 @@ def counter(dtype, d: int, dv: int) -> str:
     if dtype == torch.float32:
         return "flash_attention"
     return "flash_attention_bf16" if d == dv else "flash_attention_bf16_mla"
+
+
+def bwd_counter(dtype, d: int, dv: int) -> str:
+    """The ``launches`` key a backward call of this dtype and head dims
+    adds to."""
+    return "flash_attention_bwd_mla" if dtype == torch.bfloat16 and d != dv \
+        else "flash_attention_bwd"
 
 
 def launch(q, k, v, out, *, causal, q_offset, logits_soft_cap, seq_k_valid,
@@ -207,7 +217,7 @@ def launch_bwd(q, k, v, out, lse, dout, dq, dk, dv, *, causal, q_offset,
                     int(q_offset), 1.0 / math.sqrt(d),
                     float(logits_soft_cap),
                     torch.cuda.current_stream(dev).cuda_stream), entry)
-    launches["flash_attention_bwd"] += 1
+    launches[bwd_counter(q.dtype, d, dvd)] += 1
     return dq, dk, dv
 
 

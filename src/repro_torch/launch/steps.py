@@ -25,9 +25,7 @@ def _loss_fn(cfg: ModelConfig):
     fn = getattr(fam, "loss_fn", None)
     if fn is None:
         raise NotImplementedError(
-            f"the port has no loss for the {cfg.family!r} family yet "
-            "(training covers the dense, rwkv6, zamba2, vlm and whisper "
-            "families)")
+            f"the port has no loss for the {cfg.family!r} family")
     return fn
 
 

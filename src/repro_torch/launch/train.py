@@ -12,8 +12,11 @@ the kernels' plain versions):
 
 AdamW or Lion; MiniCPM pairs with WSD (its paper's schedule), the others
 with cosine; gradients clipped to a global norm of 1.0.  The family's
-``init(cfg, seed=0, device=...)`` gives the weights.  Every family but the
-MoE trains (dense, rwkv6, zamba2, vlm, whisper): the data pipeline's
+``init(cfg, seed=0, device=...)`` gives the weights.  Every family trains
+(dense, moe, rwkv6, zamba2, vlm, whisper): the MoE's loss adds the
+routers' load-balancing loss (``--arch deepseek-v2-lite-16b`` or
+``grok-1-314b``; at the published widths only on a card, and deepseek's
+AdamW state fits one H100 only cut in depth); the data pipeline's
 batches carry the VLM's ``patches`` (``--seq`` counts the patches and the
 text) and Whisper's ``frames`` (``enc_seq`` of them; ``--seq`` is the
 decoder's length).

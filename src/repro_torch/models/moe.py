@@ -25,6 +25,14 @@ cache in place.  No ``prefill_fn`` / ``step_fn``: MCTS decode takes the
 generic fallback of ``models.base``, whose forward is ``seq_logits_fn``
 (each row dispatched as a sequence of its own, as the JAX package's
 ``vmap`` over rows sees it).
+
+Training: ``loss_fn`` is the chunked cross-entropy plus the routers'
+load-balancing loss, over one dispatch of all B x S tokens.  Under grad
+attention takes ``layers.blocked_attention`` (kernel A and the flash
+backward kernel B, MLA's at (192, 128)); the dispatch's gradient is that
+of its gathers and scatters: a dropped slot (sent to the spare row C,
+sliced off) gets none, the expert counts ``f_e`` carry none, the
+renormalised ``topv`` carries the router's.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import unstack_layers
 from repro_torch.search.api import resolve_device
 
 
@@ -308,11 +316,12 @@ def inactive_expert_params(cfg: ModelConfig) -> int:
 
 def _layers(cfg: ModelConfig, params):
     """``(layer params, is_moe)`` for every layer in order: the leading
-    dense layers, then the stacked MoE layers' slices."""
+    dense layers, then the stacked MoE layers' slices (``unstack_layers``:
+    under autograd each stacked leaf's gradient is stacked once)."""
     for lp in params.get("dense_layers", []):
         yield lp, False
-    for i in range(cfg.n_layers - cfg.first_dense_layers):
-        yield layer_params(params, i), True
+    for lp in unstack_layers(params, cfg.n_layers - cfg.first_dense_layers):
+        yield lp, True
 
 
 # ---------------------------------------------------------------------------
@@ -345,18 +354,43 @@ def _block(cfg: ModelConfig, lp, is_moe, x, positions, rows=1):
     return x + y, aux, kv
 
 
+def _moe_block_out(cfg: ModelConfig, lp, x, positions, rows):
+    return _block(cfg, lp, True, x, positions, rows=rows)[:2]
+
+
 def hidden_states(cfg: ModelConfig, params, tokens=None, inputs_embeds=None,
                   rows: int = 1):
     """Full-sequence forward -> (final hidden ``[B, S, D]``, aux loss).
-    ``rows=B`` dispatches each sequence's tokens as if alone."""
+    ``rows=B`` dispatches each sequence's tokens as if alone (training
+    takes ``rows=1``: one dispatch over all B x S tokens, as the JAX
+    ``moe_ffn``).  Under grad mode with ``cfg.remat`` each MoE block runs
+    in ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
+    checkpoints its scan over the MoE blocks; the leading dense layers are
+    not checkpointed."""
+    from torch.utils.checkpoint import checkpoint
     x = inputs_embeds if inputs_embeds is not None \
         else L.embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, is_moe in _layers(cfg, params):
-        x, a, _ = _block(cfg, lp, is_moe, x, positions, rows=rows)
+        if is_moe and remat:
+            x, a = checkpoint(_moe_block_out, cfg, lp, x, positions, rows,
+                              use_reentrant=False)
+        else:
+            x, a, _ = _block(cfg, lp, is_moe, x, positions, rows=rows)
         aux = aux + a
     return L.apply_norm(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``, each ``[B, S]``) plus the routers' load-balancing
+    loss -> ``(ce + aux, {"loss": ce, "aux_loss": aux})``."""
+    x, aux = hidden_states(cfg, params, tokens=batch["tokens"])
+    ce = L.chunked_softmax_xent(cfg, params["embed"], x, batch["labels"],
+                                batch.get("mask"))
+    return ce + aux, {"loss": ce, "aux_loss": aux}
 
 
 def logits_fn(cfg: ModelConfig, params, tokens):

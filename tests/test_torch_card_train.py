@@ -16,8 +16,9 @@ tests/test_torch_card_train.py``.
   sums' order), 2^-7 in bf16 (the kernel rounds each gradient to bf16
   once: half a bf16 ulp of the largest element, doubled for the float32
   sums); a planted fault (one head's dk zeroed) reads far above that;
-  the bf16 kernels (wgmma) at every head dim they take, with the tails and
-  knobs; two launches on the same inputs bit-equal (no atomics);
+  the bf16 kernels (wgmma) at every head dim they take, MLA's (192, 128)
+  with tails, with the tails and knobs; two launches on the same inputs
+  bit-equal (no atomics);
 * the autograd path: the smoke model's loss backed through ``attention``
   on the card gives every attention weight a gradient, equal to the plain
   path's on the CPU within 1e-5 normwise per leaf (float32);
@@ -28,10 +29,10 @@ tests/test_torch_card_train.py``.
   bf16 (the chunked forward) and float32 (the sequential one), K5 with
   decays down to 1e-20, K6 on strided slices: normwise within the limits
   above, a planted fault far above, two launches bit-equal;
-* the rwkv6, zamba2, VLM and Whisper smoke losses: gradients on the card
-  (the scans' Functions, kernels A / B) equal the CPU's within 1e-5
-  normwise per leaf, and each card step launches the kernels its path
-  implies.
+* the rwkv6, zamba2, VLM, Whisper and MoE (deepseek-v2-lite) smoke
+  losses: gradients on the card (the scans' Functions, kernels A / B)
+  equal the CPU's within 1e-5 normwise per leaf, and each card step
+  launches the kernels its path implies.
 """
 import pytest
 
@@ -45,8 +46,10 @@ pytestmark = pytest.mark.cuda
 LSE_TOL = 1e-4
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
-SHAPES = [   # b, sq, sk, h, hkv, d, dtype, knobs
+SHAPES = [   # b, sq, sk, h, hkv, d, dtype, knobs[, v head dim]
     (8, 2048, 2048, 9, 3, 64, torch.bfloat16, dict(causal=True)),
+    # MLA's (192, 128) on the two-warpgroup dK / dV kernel, with tails
+    (1, 300, 300, 4, 4, 192, torch.bfloat16, dict(causal=True), 128),
     (2, 1024, 1024, 32, 32, 80, torch.bfloat16, dict(causal=True)),
     # the bf16 kernels' tails and knobs: Sq, Sk not multiples of 64,
     # q_offset, seq_k_valid < Sk, a soft cap, GQA; grok's cap and head dim
@@ -68,11 +71,12 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, b, sq, sk, h, hkv, d, dtype, seed=0):
+def _inputs(dev, b, sq, sk, h, hkv, d, dtype, seed=0, dv=None):
+    dv = dv or d
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa
-    return r(b, sq, h, d), r(b, sk, hkv, d), r(b, sk, hkv, d), \
-        r(b, sq, h, d)
+    return r(b, sq, h, d), r(b, sk, hkv, d), r(b, sk, hkv, dv), \
+        r(b, sq, h, dv)
 
 
 def normwise(got, want) -> float:
@@ -82,11 +86,12 @@ def normwise(got, want) -> float:
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(
-    map(str, s[:6])) + str(s[6])[-4:])
+    map(str, s[:6])) + "".join(f"-dv{x}" for x in s[8:]) + str(s[6])[-4:])
 def test_kernels_a_and_b_match_plain(shape):
     dev = _card()
-    b, sq, sk, h, hkv, d, dt, kw = shape
-    q, k, v, dout = _inputs(dev, b, sq, sk, h, hkv, d, dt)
+    b, sq, sk, h, hkv, d, dt, kw = shape[:8]
+    q, k, v, dout = _inputs(dev, b, sq, sk, h, hkv, d, dt,
+                            dv=shape[8] if len(shape) > 8 else None)
     with torch.no_grad():
         out, lse = tfa.flash_attention_lse(q, k, v, **kw)
         serve = tfa.flash_attention(q, k, v, **kw)
@@ -220,7 +225,8 @@ def test_ssd_backward_head_groups_match_plain(group, dt):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
-                                  "internvl2-2b", "whisper-base"])
+                                  "internvl2-2b", "whisper-base",
+                                  "deepseek-v2-lite-16b"])
 def test_family_losses_on_the_card_match_the_cpu(arch):
     dev = _card()
     from repro_torch.configs import get_smoke_config
@@ -254,6 +260,9 @@ def test_family_losses_on_the_card_match_the_cpu(arch):
         if isinstance(t, dict):
             for k in sorted(t):
                 yield from leaves(t[k], path + (k,))
+        elif isinstance(t, list):
+            for i, x in enumerate(t):
+                yield from leaves(x, path + (i,))
         else:
             yield path, t
     for (path, g), (_, gc) in zip(leaves(grads), leaves(grads_c)):

@@ -34,10 +34,11 @@ jax.config.update("jax_default_matmul_precision", "highest")
 
 GRAD_TOL = 2.0 ** -7
 
-CASES = [   # b, sq, sk, h, hkv, d, causal, q_offset, cap
+CASES = [   # b, sq, sk, h, hkv, d, causal, q_offset, cap[, v head dim]
     (1, 256, 256, 9, 3, 64, True, 0, 0.0),     # smollm's heads, causal
     (1, 192, 192, 4, 4, 80, True, 0, 0.0),     # stablelm's head dim
     (2, 77, 90, 4, 2, 64, True, 5, 3.0),       # tails, q_offset, soft cap
+    (1, 130, 130, 4, 4, 192, True, 0, 0.0, 128),   # MLA's (192, 128), tails
 ]
 
 
@@ -92,14 +93,16 @@ def normwise(got, want) -> float:
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(
-    map(str, c[:6])) + f"-off{c[7]}-cap{c[8]}")
+    map(str, c[:6])) + "".join(f"-dv{x}" for x in c[9:])
+    + f"-off{c[7]}-cap{c[8]}")
 def test_rounded_p_and_ds_stay_within_the_limit(case):
-    b, sq, sk, h, hkv, d, causal, off, cap = case
+    b, sq, sk, h, hkv, d, causal, off, cap = case[:9]
+    dv = case[9] if len(case) > 9 else d
     rng = np.random.default_rng(22)
     q, k, v, dout = (_bf16(torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)))
-        for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
-                  (b, sq, h, d)))
+        for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, dv),
+                  (b, sq, h, dv)))
     out, lse, *want = _jax_bwd(*(jnp.asarray(t.numpy())
                                  for t in (q, k, v, dout)), causal, off, cap)
     out, lse = (torch.from_numpy(np.array(t)) for t in (out, lse))
@@ -109,7 +112,7 @@ def test_rounded_p_and_ds_stay_within_the_limit(case):
         assert 0.0 < err <= GRAD_TOL, (name, err)
 
 
-@pytest.mark.parametrize("dims", [(16, 16), (192, 128), (96, 96)])
+@pytest.mark.parametrize("dims", [(16, 16), (192, 192), (96, 96)])
 def test_bf16_backward_refuses_other_head_dims(monkeypatch, dims):
     """The CUDA path (forced at the dispatch, CPU tensors) raises for a
     bf16 head-dim pair outside ``BWD_BF16_HEAD_DIMS`` before any build or
