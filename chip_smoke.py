@@ -167,6 +167,33 @@ Phases; each prints one line and any mismatch or error exits non-zero:
               fault, timed steps, one traced; ``serve-launch``:
               ``launch.serve.main`` greedy and ``--mcts`` on
               smollm-smoke, card == CPU
+  7e. parallel  after ``serve-launch``, line ``parallel``: the
+              model-parallel layer (``src/repro_torch/parallel``) in two
+              processes on ``cuda:0`` under gloo (one rank per card under
+              NCCL where there are two or more), each counting its own
+              launches around each main path: (a) ``dist_decode_attention``
+              at qwen2-0.5b's decode heads (B 8, H 14 / 2, D 64, bf16) on
+              a 65,536-token cache split over the ranks, ragged valid
+              lengths (one row ending inside the first shard), each
+              rank's partial K3 with its lse store, held to one K3 call
+              over the whole cache and to the plain version (output and
+              lse), an lse shifted by 1 on one rank above the limit, the
+              partial timed beside its plain version and SDPA; (b)
+              ``ep_moe_ffn`` at deepseek-v2-lite-16b's MoE widths on 4,096
+              bf16 tokens over a model axis, held to the grouped dispatch
+              at a capacity with no drops and to one rank's EP at the
+              config's capacity and at 90% of the largest expert load
+              (which must drop slots); (c) smollm-135m's sharded train
+              step (8 x 2048 tokens over a data axis, state at rest as
+              each rank's slices) for 3 steps, held to the one-process
+              step (loss, grad_norm, every leaf after step 3), a planted
+              fault (no sum over data in the gradient's reduce-scatter)
+              above a limit, the farthest leaf no farther from a float32
+              one-process run than FAM_F32_RATIO times the one-process
+              bf16 run, bytes at rest a rank (with the EF residuals)
+              against the whole state's, once more with the int8 EF
+              compressor; (d) ``pipeline_forward`` of smollm-135m's 30
+              blocks as 2 stages of 15, held to ``hidden_states``
   8. profile  device busy share and time by kernel of the fused P-game
               runs (at a quarter of FULL's budget, PROFILED), one LM
               token's search and one engine step of each
@@ -1060,7 +1087,7 @@ def phase_full(dev):
     for k, v in counts.items():
         if v == 0 and k in SOURCES \
                 and k not in LM_KERNELS + REC_KERNELS + FAM_KERNELS \
-                + TRAIN_KERNELS:
+                + TRAIN_KERNELS + PAR_KERNELS:
             fail(f"kernel {k} was not launched on the main path")
     say("full " + "; ".join(f"{r['run'][5:]} {r['playouts_per_s']:.0f} "
                             f"playouts/s" for r in runs)
@@ -3277,6 +3304,7 @@ FAM_SMALL_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b", "internvl2-2b",
                    "whisper-base")
 FAM_SEED = 0
 FAM_KERNELS = ("flash_attention_bf16_mla",)   # run by the MoE paths only
+PAR_KERNELS = ("decode_attention_lse",)  # run by the parallel phase only
 # deepseek-v2-lite-16b at its published width: 16 requests with ragged
 # prompts of 64-384 tokens over 8 slots (refill), 16 new tokens each
 MOE_GREEDY = dict(max_batch=8, max_seq=512, requests=16, prompt_min=64,
@@ -5081,6 +5109,518 @@ def phase_serve_launch(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the model-parallel layer (parallel/*): two ranks on cuda:0 under gloo
+# ---------------------------------------------------------------------------
+# (a) the sequence-sharded flash-decode at qwen2-0.5b's decode heads, bf16,
+# a 65,536-token cache over the ranks; row 0 ends inside the first shard,
+# row 2 at the shard boundary
+PAR_DECODE = dict(b=8, h=14, hkv=2, d=64, s=65536,
+                  valid=(1000, 65536, 32768, 40001, 65535, 12345, 50000,
+                         32769))
+# (b) EP at deepseek-v2-lite-16b's MoE widths (64 experts, D 2048, F 1408,
+# top-6), 4,096 bf16 tokens on a model axis of the ranks; random tokens
+# load the experts evenly, so the config's capacity drops nothing, and a
+# capacity at PAR_MOE_DROP of the largest load makes EP drop slots
+PAR_MOE_TOKENS = 4096
+PAR_MOE_DROP = 0.9
+# (c) smollm-135m's sharded train step, 8 x 2048 tokens over a data axis
+PAR_TRAIN = dict(batch=8, seq=2048, steps=3, lr=3e-4)
+# (d) smollm-135m's 30 blocks as one stage a rank, 4 microbatches
+PAR_PIPE = dict(batch=8, seq=512, micro=4)
+PAR_SEED = 26
+# normwise (max |diff| / max |want|) limits, each above what bf16 rounding
+# alone gives:
+#  decode: each rank's partial is rounded to bf16 once and the combined
+#    output once more (<= 2 x 2^-9 of the larger of them); planted: one
+#    rank's lse shifted by 1 must read above it
+PAR_DECODE_TOL = 2.0 ** -7
+#  lse: float32 from bf16 inputs, the kernel's exp2 / log2 vs the plain
+#    logsumexp (absolute, as LSE_TOL)
+#  moe: the grouped dispatch adds its k = 6 weighted slots in bf16 (a
+#    rounding each), EP in float32 and rounds once; the expert GEMMs of
+#    other batch shapes may sum in another order (an ulp of each product)
+PAR_MOE_TOL = 2.0 ** -6
+#  train: the data shards' bf16 gradients, averaged in float32, against
+#    the one-process bf16 gradient of the whole batch (GEMMs of other
+#    shapes, the embedding's bf16 sums grouped otherwise) spread through
+#    30 layers and 3 AdamW steps: train-full's limits for a bf16 step
+#    (TRAIN_FULL_TOL: loss, grad_norm relative; every leaf normwise, the
+#    second moments squaring the gradients' differences)
+#    The leaf farthest from the one-process step is also read against a
+#    float32 one-process run: the sharded run may be no farther from it
+#    than FAM_F32_RATIO times the one-process bf16 run is (the gap being
+#    the bf16 rounding of both, not the sharding)
+#  the EF run: its loss at step 0 is the uncompressed one (taken before
+#    the gradient), bit for bit; later losses relative to the uncompressed
+#    run's.  Its grad_norm is reported, not held: the compressed all-mean
+#    (the JAX package's) scales the summed int8 payloads by the ranks'
+#    mean block scale, which misses where the ranks' scales differ (it
+#    read 8.5% under the exact norm at step 0 on an H100)
+PAR_EF_TOL = 2e-3
+#  pipeline: microbatches of 2 rows against the whole batch of 8 (GEMMs of
+#    other shapes) over 30 bf16 blocks
+PAR_PIPE_TOL = 2.0 ** -6
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def par_decode(rank, world, mesh, dev, timing: bool) -> dict:
+    """(a): ``dist_decode_attention`` on this rank's slice of the cache,
+    counted; then the holds (outside the count) and, on rank 0, the K3
+    partial timed beside its plain version and SDPA."""
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.parallel.dist_attention import (combine_partials,
+                                                     dist_decode_attention,
+                                                     local_valid_len)
+    c = PAR_DECODE
+    b, h, hkv, d, s = c["b"], c["h"], c["hkv"], c["d"], c["s"]
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    bf = torch.bfloat16
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(bf)
+    vl = torch.tensor(c["valid"], dtype=torch.int32, device=dev)
+    sl = s // world
+    lo = rank * sl
+    kl, vl_ = k[:, lo:lo + sl], v[:, lo:lo + sl]
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    out = dist_decode_attention(q, kl, vl_, vl, mesh)
+    torch.cuda.synchronize()
+    counts = _nonzero(all_launches())
+    hold_counts(f"parallel decode rank {rank}", counts,
+                {"decode_attention_lse": 1})
+    lvl = local_valid_len(vl, lo, sl)
+    o, lse = DA.decode_attention_lse(q, kl, vl_, lvl)
+    planted = combine_partials(o, lse + (1.0 if rank == 0 else 0.0), vl,
+                               vl_, mesh, "data")
+    f32 = [t.float() for t in (q, kl, vl_)]
+    o32, lse32 = DA.decode_attention_lse(*f32, lvl, impl="ref")
+    o_pl, _ = DA.decode_attention_lse(q, kl, vl_, lvl, impl="ref")
+    check = bf16_check(f"parallel decode rank {rank} K3 partial", o, o_pl,
+                       o32)
+    empty = torch.isneginf(lse32)
+    if not torch.equal(torch.isneginf(lse), empty):
+        fail(f"parallel decode rank {rank}: the kernel's lse is -inf on "
+             f"other rows than the plain version's")
+    lse_err = float((lse - lse32)[~empty].abs().max()) if bool(
+        (~empty).any()) else 0.0
+    if lse_err > LSE_TOL:
+        fail(f"parallel decode rank {rank}: lse off the plain version's by "
+             f"{lse_err} (limit {LSE_TOL})")
+    want32 = DA.decode_attention(q.float(), k.float(), v.float(), vl,
+                                 impl="ref")
+    full = DA.decode_attention(q, k, v, vl)
+    errs = {"vs_plain32": normwise(out, want32),
+            "vs_one_k3": normwise(out, full),
+            "planted": normwise(planted, want32)}
+    if max(errs["vs_plain32"], errs["vs_one_k3"]) > PAR_DECODE_TOL:
+        fail(f"parallel decode rank {rank}: {errs} (limit "
+             f"{PAR_DECODE_TOL})")
+    if errs["planted"] <= PAR_DECODE_TOL:
+        fail(f"parallel decode rank {rank}: an lse shifted by 1 on rank 0 "
+             f"read {errs['planted']}, not above {PAR_DECODE_TOL}")
+    res = {"errs": errs, "lse_err": lse_err, "counts": counts,
+           "empty_rows": int(empty.sum()),
+           "max_abs_err": max(check["f32"], lse_err),
+           "bound": da_bound(q, hkv, lvl)}
+    del want32, full, f32
+    dist.barrier()
+    if timing:
+        mask = (torch.arange(sl, device=dev)[None, :] < lvl[:, None])[
+            :, None, None, :]
+        res.update(time_turns({
+            "ms": (lambda _: DA.decode_attention_lse(q, kl, vl_, lvl), {}),
+            "plain_ms": (lambda _: DA.decode_attention_lse(
+                q, kl, vl_, lvl, impl="ref"), dict(reps=PLAIN_REPS)),
+            "sdpa_ms": (lambda _: sdpa_fn(q, kl, vl_, attn_mask=mask,
+                                          enable_gqa=True), {})}))
+    dist.barrier()
+    return res
+
+
+def par_moe(rank, world, mesh, dev) -> dict:
+    """(b): ``ep_moe_ffn`` at a capacity with no drops (held to the
+    grouped dispatch), at the config's and at PAR_MOE_DROP of the largest
+    expert load (each held to one rank's EP: the second must drop slots,
+    as many as the loads say)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.ep_dispatch import (ep_capacity, ep_moe_ffn,
+                                                  ep_slots)
+    from repro_torch.parallel.mesh import Mesh
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 1)
+    p = M.init_moe_ffn(cfg, gen)
+    p.pop("shared", None)
+    n, e, k = PAR_MOE_TOKENS, cfg.n_experts, cfg.moe_topk
+    x = torch.randn((n, cfg.d_model), generator=gen, device=dev) \
+        .to(cfg.jdtype)
+    _, topi, _ = M.top_experts(cfg, p, x)
+    load = torch.bincount(topi.reshape(-1), minlength=e)
+    cf_nodrop = int(load.max()) * e / (n * k)
+    cap = ep_capacity(n, k, e, cfg.moe_capacity)
+    dropped = int((load - cap).clamp_min(0).sum())
+    cf_drop = int(PAR_MOE_DROP * int(load.max())) * e / (n * k)
+    cap_drop = ep_capacity(n, k, e, cf_drop)
+    dropped_drop = int((load - cap_drop).clamp_min(0).sum())
+    kept = int(ep_slots(topi, 0, e, cap_drop)[2].sum())
+    if dropped_drop == 0 or kept != n * k - dropped_drop:
+        fail(f"parallel moe rank {rank}: capacity {cap_drop} drops "
+             f"{dropped_drop} slots by the loads, keeps {kept} of {n * k} "
+             f"by ep_slots")
+    reset_launches()
+    y_free, t_free = timed(lambda: ep_moe_ffn(x, p, mesh, topk=k,
+                                              capacity_factor=cf_nodrop))
+    y_cfg, t_cfg = timed(lambda: ep_moe_ffn(
+        x, p, mesh, topk=k, capacity_factor=cfg.moe_capacity))
+    y_drop = ep_moe_ffn(x, p, mesh, topk=k, capacity_factor=cf_drop)
+    counts = _nonzero(all_launches())
+    one = Mesh(np.array([rank]), ("model",), rank, device=dev)
+    y_one = ep_moe_ffn(x, p, one, topk=k, capacity_factor=cfg.moe_capacity)
+    y_one_drop = ep_moe_ffn(x, p, one, topk=k, capacity_factor=cf_drop)
+    y_grp, _ = M.moe_ffn(cfg.replace(moe_capacity=cf_nodrop, moe_groups=1,
+                                     moe_impl="gather"), p, x)
+    errs = {"nodrop_vs_grouped": normwise(y_free, y_grp),
+            "cfg_vs_one_rank": normwise(y_cfg, y_one),
+            "drop_vs_one_rank": normwise(y_drop, y_one_drop)}
+    if max(errs.values()) > PAR_MOE_TOL:
+        fail(f"parallel moe rank {rank}: {errs} (limit {PAR_MOE_TOL})")
+    return {"errs": errs, "counts": counts, "cf_nodrop": cf_nodrop,
+            "max_load": int(load.max()), "capacity": cap,
+            "dropped_slots": dropped, "drop_capacity": cap_drop,
+            "drop_dropped_slots": dropped_drop, "ep_s": t_cfg,
+            "ep_nodrop_s": t_free}
+
+
+def _bytes(tree) -> int:
+    from repro_torch.core.pytree import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree)[0])
+
+
+def par_train(rank, world, mesh, dev) -> dict:
+    """(c): smollm-135m's sharded train step at PAR_TRAIN over a data axis
+    (its state at rest as each rank's slices), counted; once more with
+    the EF compressor; once more, uncounted, with a planted fault (the
+    gradient's reduce-scatter skips its sum over ``data``, so each rank
+    steps on its own half of the batch); then, on rank 0, the one-process
+    step from the same state, which the sharded run is held to step by
+    step and leaf by leaf and the faulted run must miss, and a float32
+    one-process run (the witness of which side a leaf's gap comes
+    from)."""
+    import torch.distributed as dist
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.collectives import ErrorFeedback
+    from repro_torch.runtime.elastic import (gather_state, reshard_state,
+                                             state_shardings)
+    c = PAR_TRAIN
+    cfg, step_one, params, opt0, dcfg = train.build(
+        TRAIN_ARCH, False, c["batch"], c["seq"], c["lr"], c["steps"],
+        device=dev)
+    whole = {"params": params, "opt": opt0}
+    sh = state_shardings(cfg, whole, mesh)
+    local = reshard_state(cfg, whole, mesh)
+    sched = train.schedule(TRAIN_ARCH, c["lr"], c["steps"])
+    batches = [synthetic_batch(cfg, dcfg, i) for i in range(c["steps"])]
+
+    def run(step, state):
+        p, o = state["params"], state["opt"]
+        ms = []
+        for bt in batches:
+            p, o, m = step(p, o, bt)
+            ms.append({k: float(v) for k, v in m.items()})
+        return {"params": p, "opt": o}, ms
+
+    res = {"bytes_at_rest": {"params": _bytes(local["params"]),
+                             "opt": _bytes(local["opt"])},
+           "bytes_whole": {"params": _bytes(params), "opt": _bytes(opt0)}}
+    counts = {}
+    ef = ErrorFeedback(params, mesh, "data")
+    for name, comp in (("sharded", None), ("ef", ef)):
+        step = make_train_step(cfg, adamw(), sched, compress_grads=comp,
+                               mesh=mesh, shardings=sh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        (st, ms), secs = timed(lambda: run(step, local))
+        counts[name] = _nonzero(all_launches())
+        res[name] = {"metrics": ms, "seconds": secs}
+        if name == "sharded":
+            gathered = gather_state(st, sh)
+        del st
+    # the EF residuals: float32, each rank's whole gradient tree
+    res["bytes_at_rest"]["ef_residual"] = _bytes(ef.err)
+    del ef
+    want = {"flash_attention_lse": 2 * cfg.n_layers * c["steps"],
+            "flash_attention_bwd": cfg.n_layers * c["steps"]}
+    for name in counts:
+        hold_counts(f"parallel train {name} rank {rank}", counts[name],
+                    want)
+    res["counts"] = counts
+    real_rs = C.reduce_scatter
+
+    def own_half(x, spec, mesh_, axes):   # this rank's slice, not summed;
+        n = math.prod(mesh_.shape[a] for a in axes)   # the step divides
+        return real_rs(x, spec, mesh_, ()) * n        # by n
+    with patched_attrs([(C, "reduce_scatter", own_half)]):
+        step = make_train_step(cfg, adamw(), sched, mesh=mesh, shardings=sh)
+        st, res["fault"] = run(step, local)
+    fault = gather_state(st, sh)
+    del st
+    efm, plain = res["ef"]["metrics"], res["sharded"]["metrics"]
+    if efm[0]["loss"] != plain[0]["loss"]:
+        fail(f"parallel train rank {rank}: the EF run's step-0 loss "
+             f"{efm[0]['loss']} != the uncompressed {plain[0]['loss']}")
+    for i, (a, b) in enumerate(zip(efm, plain)):
+        if not (math.isfinite(a["loss"]) and math.isfinite(a["grad_norm"])
+                and abs(a["loss"] - b["loss"]) <= PAR_EF_TOL * b["loss"]):
+            fail(f"parallel train rank {rank}: EF step {i} {a} vs the "
+                 f"uncompressed {b} (loss limit {PAR_EF_TOL} relative)")
+    dist.barrier()
+    if rank == 0:           # the one-process steps, uncounted; held by the
+        st1, ms1 = run(step_one, whole)                 # parent
+
+        def metric_err(ms):
+            return {key: max(abs(a[key] - b[key]) / abs(b[key])
+                             for a, b in zip(ms, ms1))
+                    for key in ("loss", "grad_norm")}
+        worst = leaf_errors(gathered, st1, stacked=())
+        res["one_process"] = ms1
+        res["metric_err"] = metric_err(res["sharded"]["metrics"])
+        top = max(worst, key=worst.get)
+        res["leaf_err_max"] = (top, worst[top])
+        bad = leaf_errors(fault, st1, stacked=())
+        res["fault_err"] = {**metric_err(res["fault"]),
+                            "leaf": max(bad.values()),
+                            "leaf_name": max(bad, key=bad.get)}
+        del fault
+        c32 = cfg.replace(dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        st32, ms32 = run(make_train_step(c32, adamw(), sched),
+                         {"params": p32, "opt": adamw().init(p32)})
+        del p32
+        e_sh = leaf_errors(gathered, st32, stacked=())
+        e_one = leaf_errors(st1, st32, stacked=())
+        res["f32_witness"] = {
+            "leaf": top, "sharded_vs_f32": e_sh[top],
+            "one_process_vs_f32": e_one[top],
+            "losses_f32": [m["loss"] for m in ms32],
+            "leaves_sharded_farther": sum(e_sh[k] > e_one[k]
+                                          for k in e_sh),
+            "leaves": len(e_sh)}
+        del st1, st32
+    del gathered
+    dist.barrier()
+    return res
+
+
+def par_pipe(rank, world, dev) -> dict:
+    """(d): smollm-135m's blocks as one stage a rank through
+    ``pipeline_forward``, counted, held to ``hidden_states``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_forward
+    c = PAR_PIPE
+    stage = make_mesh((world,), ("stage",), device=dev)
+    cfg = get_config(TRAIN_ARCH)
+    params = T.init(cfg, seed=PAR_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        x0 = L.embed_tokens(cfg, params["embed"], tokens)
+        cos, sin = L.rope_freqs(cfg, torch.arange(c["seq"], device=dev))
+        reset_launches()
+        out, secs = timed(lambda: pipeline_forward(
+            lambda lp, hs: T._block_out(cfg, lp, hs, cos, sin),
+            params["layers"], x0, stage, n_micro=c["micro"]))
+        counts = _nonzero(all_launches())
+        got = L.apply_norm(cfg, params["final_norm"], out)
+        want = T.hidden_states(cfg, params, tokens=tokens)
+    per = cfg.n_layers // world
+    hold_counts(f"parallel pipeline rank {rank}", counts,
+                {"flash_attention_bf16": per * c["micro"]})
+    err = normwise(got, want)
+    if err > PAR_PIPE_TOL:
+        fail(f"parallel pipeline rank {rank}: {err} normwise off the "
+             f"sequential hidden_states (limit {PAR_PIPE_TOL})")
+    return {"err": err, "counts": counts, "seconds": secs,
+            "layers_here": per}
+
+
+def parallel_worker(rank: int, world: int, backend: str, init: str,
+                    out: str, device: str) -> None:
+    """One rank of the ``parallel`` line (started with ``spawn``): (a)-(d)
+    in order, each part's launches counted around its main path; the
+    results as JSON in ``out/rank{rank}.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend, init, world, rank)
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    res = {"rank": rank, "seconds": {}}
+    parts = (("decode", lambda: par_decode(
+                 rank, world, make_mesh((world,), ("data",), device=dev),
+                 dev, rank == 0)),
+             ("moe", lambda: par_moe(
+                 rank, world, make_mesh((world,), ("model",), device=dev),
+                 dev)),
+             ("train", lambda: par_train(
+                 rank, world, make_mesh((world,), ("data",), device=dev),
+                 dev)),
+             ("pipe", lambda: par_pipe(rank, world, dev)))
+    for name, fn in parts:
+        t1 = time.perf_counter()
+        res[name] = fn()
+        res["seconds"][name] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    res["seconds"]["all"] = time.perf_counter() - t0
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel(dev):
+    """The model-parallel layer: two processes on ``cuda:0`` under gloo
+    (NCCL refuses two ranks on one card), or one rank per card under NCCL
+    where there are two or more, run (a)-(d) (``parallel_worker``); each
+    writes its holds, launches and times, read back here."""
+    import multiprocessing
+    import shutil
+    n = torch.cuda.device_count()
+    world, backend = (n, "nccl") if n >= 2 else (2, "gloo")
+    base = ROOT / "chiprun_out" / "parallel"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    devs = [f"cuda:{r}" if backend == "nccl" else str(dev)
+            for r in range(world)]
+    procs = [ctx.Process(target=parallel_worker,
+                         args=(r, world, backend, f"file://{base}/rdv",
+                               str(base), devs[r]))
+             for r in range(world)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:                    # a rank that fails leaves the other waiting
+        while any(p.is_alive() for p in procs) \
+                and time.perf_counter() - t0 < 600:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    secs = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0] * world:
+        fail(f"parallel: ranks exited {[p.exitcode for p in procs]}")
+    ranks = [json.loads((base / f"rank{r}.json").read_text())
+             for r in range(world)]
+    counts: dict = {}           # every rank's main-path launches
+    for r in ranks:
+        for c in ([r["decode"]["counts"], r["moe"]["counts"],
+                   r["pipe"]["counts"]]
+                  + list(r["train"]["counts"].values())):
+            add_counts(counts, c)
+    dec, moe, tr, pp = (ranks[0][k] for k in ("decode", "moe", "train",
+                                               "pipe"))
+    for key in ("loss", "grad_norm"):
+        if tr["metric_err"][key] > TRAIN_FULL_TOL[key]:
+            fail(f"parallel train: sharded {key} {tr['metric_err'][key]} "
+                 f"relative off the one-process step's (limit "
+                 f"{TRAIN_FULL_TOL[key]}); {tr['sharded']['metrics']} vs "
+                 f"{tr['one_process']}")
+    if tr["leaf_err_max"][1] > TRAIN_FULL_TOL["leaf"]:
+        fail(f"parallel train: leaf {tr['leaf_err_max'][0]} after "
+             f"{PAR_TRAIN['steps']} steps {tr['leaf_err_max'][1]} normwise "
+             f"off the one-process step's (limit {TRAIN_FULL_TOL['leaf']})")
+    fe = tr["fault_err"]
+    fault_excess = max(fe[k] / TRAIN_FULL_TOL[k]
+                       for k in ("loss", "grad_norm", "leaf"))
+    if fault_excess <= 1.0:
+        fail(f"parallel train: the planted fault (no sum over data in the "
+             f"gradient's reduce-scatter) read {fe}, within the limits "
+             f"{TRAIN_FULL_TOL}")
+    w32 = tr["f32_witness"]
+    if w32["sharded_vs_f32"] > FAM_F32_RATIO * w32["one_process_vs_f32"]:
+        fail(f"parallel train: leaf {w32['leaf']} of the sharded run is "
+             f"{w32['sharded_vs_f32']} normwise off a float32 one-process "
+             f"run, more than FAM_F32_RATIO ({FAM_F32_RATIO}) times the "
+             f"one-process bf16 run's {w32['one_process_vs_f32']}")
+    at_rest = [[r["train"]["bytes_at_rest"][k]
+                for k in ("params", "opt", "ef_residual")] for r in ranks]
+    whole = [tr["bytes_whole"][k] for k in ("params", "opt")]
+    say(f"parallel {world} processes under {backend}: (a) "
+        f"dist_decode_attention B {PAR_DECODE['b']} H {PAR_DECODE['h']} / "
+        f"{PAR_DECODE['hkv']} D {PAR_DECODE['d']} bf16 over "
+        f"{PAR_DECODE['s']} keys: vs the plain version "
+        f"{max(r['decode']['errs']['vs_plain32'] for r in ranks):.3e}, vs "
+        f"one K3 call {max(r['decode']['errs']['vs_one_k3'] for r in ranks):.3e}"
+        f", planted lse+1 {min(r['decode']['errs']['planted'] for r in ranks):.3e}"
+        f" (limit {PAR_DECODE_TOL:.3e}), lse {max(r['decode']['lse_err'] for r in ranks):.2e}"
+        f", K3 partial {dec['ms']:.4f} ms plain {dec['plain_ms']:.4f} sdpa "
+        f"{dec['sdpa_ms']:.4f} bound {dec['bound'][0]:.4f} ms; (b) "
+        f"ep_moe_ffn {PAR_MOE_TOKENS} tokens x 64 experts top-6: no-drop "
+        f"capacity vs grouped {max(r['moe']['errs']['nodrop_vs_grouped'] for r in ranks):.3e}"
+        f", config capacity {moe['capacity']} ({moe['dropped_slots']} "
+        f"slots dropped) vs one rank "
+        f"{max(r['moe']['errs']['cfg_vs_one_rank'] for r in ranks):.3e}, "
+        f"capacity {moe['drop_capacity']} of the largest load "
+        f"{moe['max_load']} ({moe['drop_dropped_slots']} slots dropped) vs "
+        f"one rank "
+        f"{max(r['moe']['errs']['drop_vs_one_rank'] for r in ranks):.3e} "
+        f"(limit {PAR_MOE_TOL:.3e}); (c) smollm-135m sharded step x "
+        f"{PAR_TRAIN['steps']}: losses "
+        f"{[round(m['loss'], 5) for m in tr['sharded']['metrics']]} vs "
+        f"{[round(m['loss'], 5) for m in tr['one_process']]} (relative "
+        f"{tr['metric_err']['loss']:.2e}, grad_norm "
+        f"{tr['metric_err']['grad_norm']:.2e}), worst leaf "
+        f"{tr['leaf_err_max'][0]} {tr['leaf_err_max'][1]:.3e} (limits "
+        f"{TRAIN_FULL_TOL}), EF grad_norms "
+        f"{[round(m['grad_norm'], 4) for m in tr['ef']['metrics']]} vs "
+        f"{[round(m['grad_norm'], 4) for m in tr['sharded']['metrics']]}, "
+        f"bytes at rest a rank [params, opt, EF residuals] {at_rest} of "
+        f"the whole "
+        f"state's {whole}, "
+        f"planted no-sum-over-data {fe} (excess {fault_excess:.3g}), "
+        f"float32 witness {tr['f32_witness']}, "
+        f"{tr['sharded']['seconds']:.2f} s sharded / "
+        f"{tr['ef']['seconds']:.2f} s EF; (d) pipeline 2 x "
+        f"{pp['layers_here']} blocks, {PAR_PIPE['micro']} microbatches: "
+        f"{max(r['pipe']['err'] for r in ranks):.3e} (limit "
+        f"{PAR_PIPE_TOL:.3e}); {secs:.1f} s from spawn to exit")
+    if secs > 90:
+        say(f"parallel: WARNING {secs:.1f} s from spawn to exit, over the "
+            f"90 s budget")
+    row = {"ms": dec["ms"], "plain_ms": dec["plain_ms"],
+           "bound": tuple(dec["bound"]), "sdpa_ms": dec["sdpa_ms"],
+           "max_abs_err": max(r["decode"]["max_abs_err"] for r in ranks)}
+    return {"world": world, "backend": backend, "seconds": secs,
+            "ranks": ranks}, counts, row
+
+
 SOURCES = {
     "se": ("src/repro_torch/csrc/search_wave.cu",
            "src/repro/kernels/search_wave/kernel.py:403"),
@@ -5105,6 +5645,10 @@ SOURCES = {
         "src/repro/kernels/flash_attention/kernel.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
+    # K3 storing each row's lse: the sequence-sharded decode's partial
+    "decode_attention_lse": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:61"),
     "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:74"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -5288,6 +5832,9 @@ def main() -> int:
     reset_launches()
     with clock("serve_launch"):
         serve_counts = phase_serve_launch(dev)
+    # the model-parallel layer: its ranks count their own main paths
+    with clock("parallel"):
+        par, par_counts, attn["decode_attention_lse"] = phase_parallel(dev)
     with clock("profile"):
         prof = phase_profile(dev)
     # launches on the main paths: the float32 smoke runs, P-game, LM
@@ -5295,7 +5842,7 @@ def main() -> int:
     # the other families (smoke and full width)
     paths = (small_counts, counts, lm_run["launches"], lm_carry["launches"],
              shard_counts, rec_counts, fam_small_counts, *fam_counts,
-             train_counts, serve_counts)
+             train_counts, serve_counts, par_counts)
     total = {k: sum(p.get(k, 0) for p in paths) for k in all_launches()}
     for k in ("wkv6", "ssd"):     # the counters count calls of both routes
         total[k + "_step"] = total.pop(k) - total[k + "_chunked"]
@@ -5368,6 +5915,7 @@ def main() -> int:
               "train_families_full": train_fam,
               "launches_train": train_counts,
               "launches_serve_launch": serve_counts,
+              "parallel": par, "launches_parallel": par_counts,
               "launches_total": total,
               "launches_small": small_counts, "host_us": HOST,
               "host_us_spread": HOST_SPREAD, "chains": CHAINS,

@@ -8,9 +8,12 @@
 // with the batch and sequence strides given in elements (head and feature
 // dims packed), so one layer's slice of a batched cache [..., L, S, Hkv, D]
 // is read in place.  valid_len [B] int32: keys at or beyond it are skipped;
-// valid_len 0 gives zeros.  GQA: the block of kv head g serves query heads
-// g * G .. g * G + G - 1 (G = H / Hkv), so each key is read once for all of
-// them.  Rows of D * sizeof(T) bytes, a multiple of 16.
+// valid_len 0 gives zeros.  When the lse pointer is given, each (b, h)
+// row's float32 natural-log logsumexp of its scaled scores is stored there
+// too ([B, H]; -inf for a row with no key): the partial that the
+// sequence-sharded decode (parallel/dist_attention.py) combines across
+// ranks.  GQA: the block of kv head g serves query heads g * G .. g * G +
+// G - 1 (G = H / Hkv), so each key is read once for all of them.  Rows of D * sizeof(T) bytes, a multiple of 16.
 //
 // What bounds it on an H100: bytes.  A launch reads each valid key and
 // value once (main path, smollm-135m: 256 sequences x ~270 positions x 3 kv
@@ -47,6 +50,13 @@ constexpr int STAGES = 2;           // ring stages per warp
 constexpr int MAX_WARPS = 4;
 constexpr int SMEM_TARGET = 110 * 1024;   // per block, bounds the warps
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The natural-log logsumexp of a row from its running max (log2 domain)
+// and sum of exp2 terms: -inf for a row with no key.
+__device__ __forceinline__ float row_lse(float mx, float lsum) {
+  return mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
@@ -128,7 +138,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 da_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ valid_len,
           T* __restrict__ out, float* __restrict__ part_ml,
-          float* __restrict__ part_acc, int sk, int h, int hkv, int d_arg,
+          float* __restrict__ part_acc, float* __restrict__ lse, int sk,
+          int h, int hkv, int d_arg,
           long long k_sb, long long k_ss, long long v_sb, long long v_ss,
           float scale_log2) {
   const int d = DT > 0 ? DT : d_arg;
@@ -299,6 +310,8 @@ da_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (nsplit == 1) {
       out[((size_t)b * h + (size_t)g0 * G + g) * d + col] =
           Vec<T>::to(o / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && col == 0)
+        lse[(size_t)b * h + (size_t)g0 * G + g] = row_lse(mx, lsum);
     } else {
       if (col == 0) {
         part_ml[(row + g) * 2] = mx;
@@ -313,8 +326,8 @@ da_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void da_combine(const float* __restrict__ part_ml,
                            const float* __restrict__ part_acc,
-                           T* __restrict__ out, int hkv, int g_size, int d,
-                           int nsplit) {
+                           T* __restrict__ out, float* __restrict__ lse,
+                           int hkv, int g_size, int d, int nsplit) {
   const int bh = blockIdx.x, b = bh / hkv, g0 = bh % hkv;
   const int h = hkv * g_size;
   for (int e = threadIdx.x; e < g_size * d; e += blockDim.x) {
@@ -333,6 +346,8 @@ __global__ void da_combine(const float* __restrict__ part_ml,
     }
     out[((size_t)b * h + (size_t)g0 * g_size + g) * d + col] =
         Vec<T>::to(o / fmaxf(lsum, 1e-30f));
+    if (lse != nullptr && col == 0)
+      lse[(size_t)b * h + (size_t)g0 * g_size + g] = row_lse(mx, lsum);
   }
 }
 
@@ -347,8 +362,8 @@ int warps_for(int d) {
 
 template <typename T, int G, int DT>
 int launch_d(const void* q, const void* k, const void* v, const int* vl,
-             void* out, float* part_ml, float* part_acc, int b, int sk,
-             int h, int hkv, int d, long long k_sb, long long k_ss,
+             void* out, float* part_ml, float* part_acc, float* lse, int b,
+             int sk, int h, int hkv, int d, long long k_sb, long long k_ss,
              long long v_sb, long long v_ss, float scale, int nsplit,
              cudaStream_t stream) {
   static cudaError_t attr = cudaFuncSetAttribute(   // once per instance
@@ -362,45 +377,47 @@ int launch_d(const void* q, const void* k, const void* v, const int* vl,
   dim3 grid(b * hkv, nsplit);
   da_kernel<T, G, DT><<<grid, nw * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, vl, (T*)out, part_ml, part_acc,
-      sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale * LOG2E);
+      lse, sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale * LOG2E);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   da_combine<T><<<b * hkv, 128, 0, stream>>>(part_ml, part_acc, (T*)out,
-                                            hkv, G, d, nsplit);
+                                            lse, hkv, G, d, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int G>
 int launch_g(const void* q, const void* k, const void* v, const int* vl,
-             void* out, float* part_ml, float* part_acc, int b, int sk,
-             int h, int hkv, int d, long long k_sb, long long k_ss,
+             void* out, float* part_ml, float* part_acc, float* lse, int b,
+             int sk, int h, int hkv, int d, long long k_sb, long long k_ss,
              long long v_sb, long long v_ss, float scale, int nsplit,
              cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {   // the models' bf16 head dims
     if (d == 64)
-      return launch_d<T, G, 64>(q, k, v, vl, out, part_ml, part_acc, b, sk,
-                                h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
+      return launch_d<T, G, 64>(q, k, v, vl, out, part_ml, part_acc, lse, b,
+                                sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
                                 nsplit, stream);
     if (d == 128)
-      return launch_d<T, G, 128>(q, k, v, vl, out, part_ml, part_acc, b, sk,
-                                 h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
+      return launch_d<T, G, 128>(q, k, v, vl, out, part_ml, part_acc, lse, b,
+                                 sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
                                  nsplit, stream);
   }
-  return launch_d<T, G, 0>(q, k, v, vl, out, part_ml, part_acc, b, sk, h,
-                           hkv, d, k_sb, k_ss, v_sb, v_ss, scale, nsplit,
+  return launch_d<T, G, 0>(q, k, v, vl, out, part_ml, part_acc, lse, b, sk,
+                           h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale, nsplit,
                            stream);
 }
 
 template <typename T>
 int launch(int g, const void* q, const void* k, const void* v, const int* vl,
-           void* out, float* part_ml, float* part_acc, int b, int sk, int h,
-           int hkv, int d, long long k_sb, long long k_ss, long long v_sb,
-           long long v_ss, float scale, int nsplit, cudaStream_t s) {
+           void* out, float* part_ml, float* part_acc, float* lse, int b,
+           int sk, int h, int hkv, int d, long long k_sb, long long k_ss,
+           long long v_sb, long long v_ss, float scale, int nsplit,
+           cudaStream_t s) {
   switch (g) {
 #define DA_CASE(G)                                                         \
   case G:                                                                  \
-    return launch_g<T, G>(q, k, v, vl, out, part_ml, part_acc, b, sk, h,   \
-                          hkv, d, k_sb, k_ss, v_sb, v_ss, scale, nsplit, s);
+    return launch_g<T, G>(q, k, v, vl, out, part_ml, part_acc, lse, b, sk, \
+                          h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale, nsplit,  \
+                          s);
     DA_CASE(1) DA_CASE(2) DA_CASE(3) DA_CASE(4)
     DA_CASE(5) DA_CASE(6) DA_CASE(7) DA_CASE(8)
 #undef DA_CASE
@@ -413,14 +430,16 @@ int launch(int g, const void* q, const void* k, const void* v, const int* vl,
 // dtype: 0 float32, 1 bfloat16; strides in elements.  nsplit > 1 splits
 // the key axis over that many blocks per (sequence, kv head), with scratch
 // part_ml [B * Hkv * nsplit * G * 2] and part_acc [B * Hkv * nsplit * G * D]
-// float32 (unused, may be null, when nsplit is 1).  Returns a cudaError_t
-// (0 on success); 1 (cudaErrorInvalidValue) for shapes the kernel does not
+// float32 (unused, may be null, when nsplit is 1).  lse [B * H] float32,
+// or null: each row's natural-log logsumexp (-inf for no key).  Returns a
+// cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for shapes the kernel does not
 // take (D > 128, D * sizeof(T) not a multiple of 16, H / Hkv > 8).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const int* valid_len,
                                     void* out, float* part_ml,
-                                    float* part_acc, int b, int sk, int h,
-                                    int hkv, int d, long long k_sb,
+                                    float* part_acc, float* lse, int b,
+                                    int sk, int h, int hkv, int d,
+                                    long long k_sb,
                                     long long k_ss, long long v_sb,
                                     long long v_ss, float scale, int nsplit,
                                     int dtype, void* stream) {
@@ -432,12 +451,12 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   const int g = h / hkv;
   if (dtype == 0)
-    return launch<float>(g, q, k, v, valid_len, out, part_ml, part_acc, b,
-                         sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
+    return launch<float>(g, q, k, v, valid_len, out, part_ml, part_acc, lse,
+                         b, sk, h, hkv, d, k_sb, k_ss, v_sb, v_ss, scale,
                          nsplit, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(g, q, k, v, valid_len, out, part_ml,
-                                 part_acc, b, sk, h, hkv, d, k_sb, k_ss,
+                                 part_acc, lse, b, sk, h, hkv, d, k_sb, k_ss,
                                  v_sb, v_ss, scale, nsplit, s);
   return (int)cudaErrorInvalidValue;
 }

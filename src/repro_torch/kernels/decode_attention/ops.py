@@ -16,13 +16,20 @@ source note.  When B * Hkv is below two blocks per SM the key axis is split
 over blocks (flash-decoding, ``split_count``) and a second small kernel
 merges the splits; the wrapper allocates their float32 scratch.
 
+``decode_attention_lse`` also returns each ``(b, h)`` row's float32
+logsumexp ``[B, H]`` (natural log, -inf for a row with no key), which
+the kernel stores behind an optional pointer in both its one-split path
+(``da_kernel``) and its combine (``da_combine``): the partial of the
+sequence-sharded decode (``parallel/dist_attention.py``).
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (float32 or bfloat16, D <= 128, H / Hkv <= 8, 16-byte aligned
 operands and strides) and a shape it does not take, a failed build or a
 failed launch raises.  The kernel reads rows of a multiple of 16 bytes:
 ``decode_attention`` pads other head dims with zero columns (a copy of
 the cache slice; no configuration has such a head dim).  ``launches`` counts
-calls that launch the kernel.
+calls that launch the kernel: ``["decode_attention"]`` without the lse,
+``["decode_attention_lse"]`` with it.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import ref as R
 
-launches = {"decode_attention": 0}
+launches = {"decode_attention": 0, "decode_attention_lse": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -73,9 +80,10 @@ def _check_cache(t, name, dtype, shape, device):
                          f"sequence strides, got strides {t.stride()}")
 
 
-def launch(q, k, v, valid_len, out, scale=None):
+def launch(q, k, v, valid_len, out, scale=None, lse=None):
     """Launch ``da_kernel`` (and ``da_combine`` when the keys are split)
-    on checked operands; ``scale`` defaults to 1 / sqrt(D)."""
+    on checked operands; ``scale`` defaults to 1 / sqrt(D); ``lse``, a
+    float32 ``[B, H]`` tensor or None, receives each row's logsumexp."""
     b, _, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dev = q.device
@@ -92,6 +100,8 @@ def launch(q, k, v, valid_len, out, scale=None):
     _check_cache(v, "v", q.dtype, (b, sk, hkv, d), dev)
     _build.check_operand(valid_len, "valid_len", torch.int32, (b,), dev)
     _build.check_operand(out, "out", q.dtype, (b, 1, h, d), dev)
+    if lse is not None:
+        _build.check_operand(lse, "lse", torch.float32, (b, h), dev)
     if q.data_ptr() % 16:
         raise ValueError("decode_attention needs a 16-byte aligned q")
     splits = split_count(b * hkv, sk)
@@ -102,17 +112,19 @@ def launch(q, k, v, valid_len, out, scale=None):
         part_acc = torch.empty(b * h * splits * d, dtype=torch.float32,
                                device=dev)
     fn = _build.bind("decode_attention", "decode_attention_fwd",
-                     [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _I, _P])
+                     [_P] * 8 + [_I] * 5 + [_L] * 4 + [_F, _I, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     valid_len.data_ptr(), out.data_ptr(),
                     part_ml.data_ptr() if splits > 1 else None,
-                    part_acc.data_ptr() if splits > 1 else None, b, sk, h,
+                    part_acc.data_ptr() if splits > 1 else None,
+                    None if lse is None else lse.data_ptr(), b, sk, h,
                     hkv, d, k.stride(0), k.stride(1), v.stride(0),
                     v.stride(1), scale or 1.0 / math.sqrt(d), splits,
                     _DTYPE_CODES[q.dtype],
                     torch.cuda.current_stream(dev).cuda_stream),
                  "decode_attention")
-    launches["decode_attention"] += 1
+    launches["decode_attention" if lse is None
+             else "decode_attention_lse"] += 1
     return out
 
 
@@ -121,6 +133,20 @@ def decode_attention(q, k, v, valid_len, *, impl=None):
     ``[B, 1, H, D]`` in q's dtype (zeros where ``valid_len`` is 0)."""
     if _build.resolve_impl(impl, q) == "ref":
         return R.decode_attention_ref(q, k, v, valid_len)
+    return _run(q, k, v, valid_len, None)
+
+
+def decode_attention_lse(q, k, v, valid_len, *, impl=None):
+    """``decode_attention`` and each row's float32 logsumexp of its scaled
+    scores, ``[B, H]`` (-inf where ``valid_len`` is 0)."""
+    if _build.resolve_impl(impl, q) == "ref":
+        return R.decode_attention_lse_ref(q, k, v, valid_len)
+    b, _, h, _ = q.shape
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    return _run(q, k, v, valid_len, lse), lse
+
+
+def _run(q, k, v, valid_len, lse):
     _build.refuse_grad("decode_attention", q, k, v)
     d = q.shape[-1]
     pad = -d % (16 // q.element_size())
@@ -131,5 +157,5 @@ def decode_attention(q, k, v, valid_len, *, impl=None):
         q = q.clone()
     valid_len = valid_len.to(torch.int32).contiguous()
     out = launch(q, k, v, valid_len, torch.empty_like(q),
-                 scale=1.0 / math.sqrt(d))
+                 scale=1.0 / math.sqrt(d), lse=lse)
     return out[..., :d] if pad else out

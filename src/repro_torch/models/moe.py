@@ -13,8 +13,10 @@ expert by a cumsum per group in token-major, slot-minor order, slots at or
 past the capacity C dropped, and the scatter and gather taken one top-k
 slot at a time.  ``moe_impl="ragged"`` is the dropless sort-by-expert path
 (a loop over the experts, where the JAX package calls ``lax.ragged_dot``);
-``moe_impl="ep"`` takes the grouped dispatch, as the JAX package does
-without a mesh.
+``moe_impl="ep"`` under an ambient mesh (``with mesh:``) whose ``model``
+axis divides the experts takes the explicit expert-parallel dispatch of
+``parallel/ep_dispatch.py``, and the grouped dispatch elsewhere, as in
+the JAX package.
 
 Attention: the prefill runs the flash kernel (K4) through
 ``layers.attention``, MLA's at q/k head dim 192 and v head dim 128; the MLA
@@ -46,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
 from repro_torch.models.transformer import unstack_layers
+from repro_torch.parallel.sharding import prefix_axes
 from repro_torch.search.api import resolve_device
 
 
@@ -112,8 +115,18 @@ def moe_ffn(cfg: ModelConfig, p, x2d, rows: int = 1):
 
     if cfg.moe_impl == "ragged":
         return _ragged_ffn(cfg, p, x2d, topi, topv), aux
-    # moe_impl "ep" has no mesh here: the grouped dispatch, as the JAX
-    # package falls through to it without one
+    if cfg.moe_impl == "ep":
+        from repro_torch.parallel.ep_dispatch import ep_moe_ffn
+        from repro_torch.parallel.mesh import current_mesh
+        mesh = current_mesh()
+        if mesh is not None and "model" in mesh.axis_names \
+                and cfg.n_experts % mesh.shape["model"] == 0:
+            runs = x2d.reshape(rows, n // rows, d)
+            y = torch.cat([ep_moe_ffn(xr, p, mesh, topk=k,
+                                      capacity_factor=cfg.moe_capacity)
+                           for xr in runs])
+            return y, aux
+        # no usable mesh: fall through to the grouped dispatch
 
     # ---- grouped (G, E, C) buffer dispatch (GShard-style) ----
     g, c, pos, keep = dispatch_slots(cfg, topi, rows)
@@ -307,6 +320,38 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     return p
 
 
+def param_axes(cfg: ModelConfig):
+    """Logical-axis names, same tree structure as ``init()`` (the JAX
+    ``param_axes``; ``dense_layers`` a list of one tree per layer)."""
+    if cfg.use_mla:
+        attn = {"wq": ("embed", "heads"), "wdkv": ("embed", None),
+                "kv_norm": (None,), "wuk": (None, "heads"),
+                "wuv": (None, "heads"), "wo": ("heads", "embed")}
+    else:
+        attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+                "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+        if cfg.qkv_bias:
+            attn.update({"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)})
+    moe = {"router": ("embed", None),
+           "wg": ("experts", "embed", "mlp"), "wu": ("experts", "embed", "mlp"),
+           "wd": ("experts", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        moe["shared"] = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+                         "wd": ("mlp", "embed")}
+    norm = {"scale": (None,)}
+    blk = {"ln1": dict(norm), "attn": attn, "ln2": dict(norm), "moe": moe}
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    out = {"embed": emb, "layers": prefix_axes(blk), "final_norm": dict(norm)}
+    if cfg.first_dense_layers:
+        dblk = {"ln1": dict(norm), "attn": dict(attn), "ln2": dict(norm),
+                "mlp": {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+                        "wd": ("mlp", "embed")}}
+        out["dense_layers"] = [dblk for _ in range(cfg.first_dense_layers)]
+    return out
+
+
 def inactive_expert_params(cfg: ModelConfig) -> int:
     """Params NOT activated per token (for 6*N_active*D accounting)."""
     per_expert = 3 * cfg.d_model * cfg.d_ff_expert
@@ -428,6 +473,17 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                  "v": torch.zeros(kv, dtype=dtype, device=dev)}
     cache["pos"] = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
     return cache
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s tree (the JAX ``cache_axes``)."""
+    if cfg.use_mla:
+        return {"ckv": ("layers", "batch", "kv_seq", None),
+                "krope": ("layers", "batch", "kv_seq", None),
+                "pos": ("batch",)}
+    return {"k": ("layers", "batch", "kv_seq", "kv", None),
+            "v": ("layers", "batch", "kv_seq", "kv", None),
+            "pos": ("batch",)}
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache):

@@ -30,6 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
 from repro_torch.models.transformer import layer_params
+from repro_torch.parallel.sharding import prefix_axes
 from repro_torch.search.api import resolve_device
 
 
@@ -92,6 +93,29 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
                                       lambda: _init_block(cfg, gen)),
               "final_norm": _ln(d, dt)}
     return tree_to(params, dev)
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical-axis names, same tree structure as ``init()`` (the JAX
+    ``param_axes``)."""
+    ln = {"scale": (None,), "bias": (None,)}
+    tm = {"maa_x": (None,), "maa_rkvwg": (None, None),
+          "maa_w1": ("embed", None), "maa_w2": (None, None, "embed"),
+          "decay": (None,), "decay_w1": ("embed", None),
+          "decay_w2": (None, "embed"), "faaaa": ("heads", None),
+          "wr": ("embed", "heads"), "wk": ("embed", "heads"),
+          "wv": ("embed", "heads"), "wg": ("embed", "heads"),
+          "wo": ("heads", "embed"), "ln_x_scale": (None,),
+          "ln_x_bias": (None,)}
+    cm = {"maa_k": (None,), "maa_r": (None,), "wk": ("embed", "mlp"),
+          "wv": ("mlp", "embed"), "wr": ("embed", "heads")}
+    blk = {"ln1": dict(ln), "time_mix": tm, "ln2": dict(ln),
+           "channel_mix": cm}
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    return {"embed": emb, "ln0": dict(ln), "layers": prefix_axes(blk),
+            "final_norm": dict(ln)}
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +198,14 @@ def init_state(cfg: ModelConfig, batch_size: int, dtype=None, device=None):
                                device=dev),
         "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
     }
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_state``'s tree (the JAX ``cache_axes``)."""
+    return {"wkv": ("layers", "batch", "heads", None, None),
+            "tm_prev": ("layers", "batch", None),
+            "cm_prev": ("layers", "batch", None),
+            "pos": ("batch",)}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,

@@ -28,6 +28,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
+from repro_torch.parallel.sharding import prefix_axes
 from repro_torch.search.api import resolve_device
 
 
@@ -52,6 +53,36 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
                                       lambda: _init_block(cfg, gen)),
               "final_norm": L.init_norm(cfg)}
     return tree_to(params, dev)
+
+
+def _norm_axes(cfg: ModelConfig):
+    return ({"scale": (None,), "bias": (None,)} if cfg.norm == "layernorm"
+            else {"scale": (None,)})
+
+
+def block_axes(cfg: ModelConfig):
+    """One block's logical axes (``param_axes`` stacks them)."""
+    attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+            "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        attn.update({"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)})
+    mlp = ({"wi": ("embed", "mlp"), "bi": ("mlp",),
+            "wo": ("mlp", "embed"), "bo": ("embed",)}
+           if cfg.act == "gelu" else
+           {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+            "wd": ("mlp", "embed")})
+    return {"ln1": _norm_axes(cfg), "attn": attn, "ln2": _norm_axes(cfg),
+            "mlp": mlp}
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical-axis names, same tree structure as ``init()`` (the JAX
+    ``param_axes``)."""
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    return {"embed": emb, "layers": prefix_axes(block_axes(cfg)),
+            "final_norm": _norm_axes(cfg)}
 
 
 def layer_params(params, i: int):
@@ -212,6 +243,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros((batch_size,), dtype=torch.int32,
                                device=dev)}
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s tree (the JAX ``cache_axes``).
+    The searcher's flat carry state ``{"len", "plen", "logits",
+    **cache}`` (``convert.py``) holds per-node rows of this cache: its
+    ``k`` / ``v`` take these axes with the node rows as ``batch``."""
+    return {"k": ("layers", "batch", "kv_seq", "kv", None),
+            "v": ("layers", "batch", "kv_seq", "kv", None),
+            "pos": ("batch",)}
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache):

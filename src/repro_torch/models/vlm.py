@@ -41,6 +41,18 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     return p
 
 
+def param_axes(cfg: ModelConfig):
+    """The dense backbone's axes plus the projector's (the JAX
+    ``param_axes``)."""
+    ax = dense.param_axes(cfg)
+    ax["projector"] = {
+        "ln": {"scale": (None,), "bias": (None,)},
+        "w1": (None, "embed"), "b1": ("embed",),
+        "w2": ("embed", "embed"), "b2": ("embed",),
+    }
+    return ax
+
+
 def project_patches(cfg: ModelConfig, params, patches):
     p = params["projector"]
     x = L.layernorm(patches, p["ln"]["scale"], p["ln"]["bias"])
@@ -91,6 +103,7 @@ def multimodal_logits(cfg: ModelConfig, params, patches, tokens):
 
 # inference delegates to the dense backbone (image prefix enters via prefill)
 init_cache = dense.init_cache
+cache_axes = dense.cache_axes
 decode_step = dense.decode_step
 
 

@@ -26,6 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
 from repro_torch.models.transformer import layer_params
+from repro_torch.parallel.sharding import prefix_axes
 from repro_torch.search.api import resolve_device
 
 
@@ -69,6 +70,25 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
         "ln_dec": _ln(cfg),
     }
     return tree_to(params, dev)
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical-axis names, same tree structure as ``init()`` (the JAX
+    ``param_axes``)."""
+    ln = {"scale": (None,), "bias": (None,)}
+    attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+            "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        attn.update({"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)})
+    mlp = {"wi": ("embed", "mlp"), "bi": ("mlp",), "wo": ("mlp", "embed"),
+           "bo": ("embed",)}
+    enc_blk = {"ln1": dict(ln), "attn": dict(attn), "ln2": dict(ln),
+               "mlp": dict(mlp)}
+    dec_blk = {"ln1": dict(ln), "self_attn": dict(attn), "ln_x": dict(ln),
+               "cross_attn": dict(attn), "ln2": dict(ln), "mlp": dict(mlp)}
+    return {"embed": {"tok": ("vocab", "embed")}, "pos_dec": (None, "embed"),
+            "enc_layers": prefix_axes(enc_blk), "ln_enc": dict(ln),
+            "dec_layers": prefix_axes(dec_blk), "ln_dec": dict(ln)}
 
 
 def _layer(params, stack: str, i: int):
@@ -231,6 +251,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
             "xv": torch.zeros(xkv, dtype=dtype, device=dev),
             "pos": torch.zeros((batch_size,), dtype=torch.int32,
                                device=dev)}
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s tree (the JAX ``cache_axes``)."""
+    return {"k": ("layers", "batch", "kv_seq", "kv", None),
+            "v": ("layers", "batch", "kv_seq", "kv", None),
+            "xk": ("layers", "batch", None, "kv", None),
+            "xv": ("layers", "batch", None, "kv", None),
+            "pos": ("batch",)}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):

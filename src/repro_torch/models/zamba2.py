@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelConfig, register_family,
                                      stack_layers, tree_to)
 from repro_torch.models.transformer import layer_params
+from repro_torch.parallel.sharding import prefix_axes
 from repro_torch.search.api import resolve_device
 
 LORA_RANK = 64
@@ -107,6 +108,30 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
               "final_norm": {"scale": torch.ones((cfg.d_model,),
                                                  dtype=cfg.jdtype)}}
     return tree_to(params, dev)
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical-axis names, same tree structure as ``init()`` (the JAX
+    ``param_axes``)."""
+    mb = {"norm": {"scale": (None,)},
+          "in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+          "conv_b": ("mlp",), "dt_bias": (None,), "A_log": (None,),
+          "D": (None,), "gate_norm": {"scale": ("mlp",)},
+          "out_proj": ("mlp", "embed")}
+    sh = {"ln1": {"scale": (None,)},
+          "wq": ("embed", "heads"), "wk": ("embed", "kv"),
+          "wv": ("embed", "kv"), "wo": ("heads", "embed"),
+          "lora_a": (None, None, "embed", None),
+          "lora_b": (None, None, None, "heads"),
+          "ln2": {"scale": (None,)},
+          "mlp": {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+                  "wd": ("mlp", "embed")},
+          "out": ("embed", None)}
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    return {"embed": emb, "mamba": prefix_axes(mb), "shared": sh,
+            "final_norm": {"scale": (None,)}}
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +329,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                   "pos": torch.zeros((batch_size,), dtype=torch.int32,
                                      device=dev)})
     return cache
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s tree (the JAX ``cache_axes``:
+    the shared block's K/V stack its applications, not layers)."""
+    return {"conv": ("layers", "batch", None, "mlp"),
+            "ssd": ("layers", "batch", "heads", None, None),
+            "k": (None, "batch", "kv_seq", "kv", None),
+            "v": (None, "batch", "kv_seq", "kv", None),
+            "pos": ("batch",)}
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache):

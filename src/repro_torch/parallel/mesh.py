@@ -1,6 +1,10 @@
-"""1-D search meshes over devices and processes — the PyTorch counterpart
-of ``repro.launch.mesh.make_search_mesh`` and the mesh half of
-``repro.parallel.compat``.
+"""Meshes over devices and processes: the 1-D search meshes, the PyTorch
+counterpart of ``repro.launch.mesh.make_search_mesh``, and the named N-D
+meshes of the model-parallel layer (``Mesh``, ``make_mesh``,
+``make_host_mesh``), the counterparts of ``repro.parallel.compat.
+make_mesh`` and ``repro.launch.mesh.make_host_mesh``.  A named mesh is
+one rank a place, with a process group per line of each axis; the
+collectives over those groups are ``parallel/collectives.py``.
 
 JAX's mesh is single-controller: one program, compiled once, runs on
 every device.  The port's search is a host loop of many small device
@@ -25,6 +29,7 @@ refuses two ranks on one GPU), on the card under NCCL.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 import os
@@ -35,9 +40,10 @@ import torch.distributed as dist
 
 from repro_torch.core.pytree import flatten, unflatten
 
-__all__ = ["MeshEntry", "SearchMesh", "gather_rows",
-           "init_distributed", "local_rank", "make_search_mesh", "mesh_from_devices",
-           "mesh_is_multihost", "mesh_num_devices", "process_count"]
+__all__ = ["Mesh", "MeshEntry", "SearchMesh", "current_mesh", "gather_rows",
+           "init_distributed", "local_rank", "make_host_mesh", "make_mesh",
+           "make_search_mesh", "mesh_from_devices", "mesh_is_multihost",
+           "mesh_num_devices", "process_count"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -219,3 +225,139 @@ def gather_rows(mesh: SearchMesh, local: Dict[int, Any], rows: int):
     leaves = [torch.cat([x.to(mesh.home) for x in xs])[:rows]
               for xs in zip(*(f[0] for f in flat))]
     return unflatten(flat[0][1], leaves)
+
+
+# ---------------------------------------------------------------------------
+# named N-D meshes: the counterpart of ``compat.make_mesh`` /
+# ``launch.mesh.make_host_mesh`` for the model-parallel layer
+# ---------------------------------------------------------------------------
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+
+class Mesh:
+    """A named N-D mesh over the ranks of a process group, one rank a
+    place: ``devices`` is the array of global ranks in mesh order (its
+    shape the axes' sizes, as a JAX mesh's ``devices``), ``coords`` this
+    rank's index on each axis, and ``line(axis)`` the ranks of the line
+    through this rank along ``axis``, with the process group
+    ``groups[axis]`` over them (``None`` for an axis of size 1: a mesh
+    of one place needs no group).
+
+    A rank computes on ``device``; ``wire`` is where tensors cross to
+    other ranks: the CPU under gloo (which two ranks on one card must
+    use: NCCL refuses two ranks on one GPU), ``device`` under NCCL.
+
+    ``with mesh:`` makes it the ambient mesh (JAX's ``with mesh:``),
+    which ``current_mesh()`` returns; ``moe_ffn`` reads it."""
+
+    def __init__(self, ranks, axis_names: Sequence[str], rank: int = 0,
+                 groups: Dict[str, Any] = None, device=None,
+                 backend: str = "gloo"):
+        import numpy as np
+        self.devices = np.asarray(ranks, dtype=np.int64)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got "
+                             f"{self.axis_names}")
+        where = np.argwhere(self.devices == rank)
+        if len(where) != 1:
+            raise ValueError(f"rank {rank} is not once in the mesh "
+                             f"{self.devices.tolist()}")
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, map(int, where[0])))
+        self.groups = dict(groups or {})
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
+        self.backend = backend
+        self._tokens: List[Any] = []
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """``{axis: size}`` in axis order, as a JAX mesh's ``shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def wire(self) -> torch.device:
+        return self.device if self.backend == "nccl" \
+            else torch.device("cpu")
+
+    def line(self, axis: str) -> List[int]:
+        """The global ranks along ``axis`` through this rank, in order."""
+        i = self.axis_names.index(axis)
+        idx = tuple(slice(None) if j == i else self.coords[a]
+                    for j, a in enumerate(self.axis_names))
+        return [int(r) for r in self.devices[idx]]
+
+    def __enter__(self) -> "Mesh":
+        self._tokens.append(_CURRENT.set(self))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CURRENT.reset(self._tokens.pop())
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank}, "
+                f"coords={self.coords}, device={self.device})")
+
+
+def current_mesh():
+    """The ambient mesh (set by ``with mesh:``), or ``None``."""
+    return _CURRENT.get()
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None,
+              ranks: Sequence[int] = None):
+    """A named mesh of ``shape`` over ``ranks`` (default: every rank of
+    the initialised group, or this process alone outside one), laid out
+    in rank order, row-major, as ``jax.make_mesh`` lays out devices.
+
+    Inside a group of world size W every rank must call it (each line of
+    each axis becomes a process group, and ``new_group`` is collective):
+    a rank outside ``ranks`` gets ``None``.  ``device`` is where this
+    rank computes: default its own card (``cuda:$LOCAL_RANK``), or the
+    CPU without a card.  Outside a group the mesh must have one place."""
+    import numpy as np
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    w = process_count()
+    rank = dist.get_rank() if w > 1 else 0
+    ranks = list(range(n)) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) != n or len(set(ranks)) != n \
+            or not all(0 <= r < w for r in ranks):
+        raise ValueError(f"a mesh of shape {shape} needs {n} distinct "
+                         f"ranks of the {w} there are, got {ranks}")
+    grid = np.asarray(ranks, dtype=np.int64).reshape(shape)
+    if device is None:
+        device = f"cuda:{local_rank()}" if torch.cuda.is_available() \
+            else "cpu"
+    if w == 1:
+        return Mesh(grid, axes, 0, device=device)
+    backend = dist.get_backend()
+    groups: Dict[str, Any] = {}
+    for i, ax in enumerate(axes):
+        if shape[i] == 1:
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+        for members in lines.tolist():
+            g = dist.new_group(members)
+            if rank in members:
+                groups[ax] = g
+    if rank not in ranks:
+        return None
+    return Mesh(grid, axes, rank, groups, device, backend)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None):
+    """A ``(data, model)`` mesh over however many ranks there are, each
+    axis cut to fit (``repro.launch.mesh.make_host_mesh``)."""
+    n = process_count()
+    data = min(data, n)
+    model = max(1, min(model, n // data))
+    return make_mesh((data, model), ("data", "model"), device=device,
+                     ranks=range(data * model))

@@ -260,3 +260,37 @@ def test_decode_kernel_split_and_single_pass_routes(dtype, b, hkv, g, d, s):
     _hold(got, lambda c: tda.decode_attention(c(q), c(k), c(v), vl,
                                               impl="ref"), dtype)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,g,d,s", [
+    (4, 2, 3, 64, 700),      # split-K: the lse from da_combine
+    (96, 3, 3, 64, 90),      # single pass: the lse from da_kernel
+    (3, 4, 7, 80, 260),      # G 7, D 80
+])
+def test_decode_kernel_lse_matches_plain(dtype, b, hkv, g, d, s):
+    """K3 storing each row's lse (the sequence-sharded decode's partial)
+    on both routes: the output bit-equal to the same launch without the
+    lse, the lse within 1e-4 of the plain version's run in float32 (the
+    kernel sums in float32 in the log2 domain), -inf on exactly the rows
+    with valid_len 0."""
+    dev = _card()
+    h = hkv * g
+    q, kc, vc = _rand(60 + d, dtype, dev, (b, 1, h, d), (b, 3, s, hkv, d),
+                      (b, 3, s, hkv, d))
+    k, v = kc[:, 1], vc[:, 1]
+    rng = np.random.default_rng(b + 1)
+    vl = rng.integers(2, s, b)
+    vl[:3] = (0, 1, s)
+    vl = torch.tensor(vl, dtype=torch.int32, device=dev)
+    n = tda.launches["decode_attention_lse"]
+    out, lse = tda.decode_attention_lse(q, k, v, vl)
+    assert tda.launches["decode_attention_lse"] == n + 1
+    assert torch.equal(out, tda.decode_attention(q, k, v, vl))
+    _, want = tda.decode_attention_lse(q.float(), k.float(), v.float(), vl,
+                                       impl="ref")
+    empty = torch.isneginf(want)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert bool(empty[0].all()) and not bool(empty[1:].any())
+    assert float((lse - want)[~empty].abs().max()) < 1e-4

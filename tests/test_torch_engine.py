@@ -26,6 +26,7 @@ from repro import serving as JS  # noqa: E402
 from repro_torch import serving as TS  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.base import ModelConfig as TCfg  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -39,9 +40,9 @@ DCFG = dict(num_actions=3, budget=6, lanes=2, search_depth=2,
 @pytest.fixture(scope="module")
 def pair():
     jc, tc = JCfg(**KW), TCfg(**KW)
-    jp = get_family(jc).init(jc, jax.random.key(0))
-    return (jc, jp), (tc, params_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jp)))
+    jp = jax_init(jc)
+    return (jc, jax.tree_util.tree_map(jnp.asarray, jp)), \
+        (tc, params_from_numpy(jp))
 
 
 def engines(pair, **ecfg):

@@ -17,13 +17,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro import serving as JS  # noqa: E402
 from repro.configs import get_smoke_config as jsmoke  # noqa: E402
-from repro.models.base import get_family  # noqa: E402
 from repro_torch import serving as TS  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 from test_torch_engine import (DCFG, drain_both, engines,  # noqa: E402,F401
                                pair, submit, summary)
 
@@ -71,8 +72,9 @@ def test_recurrent_engine_streams_match_jax_with_carries(arch):
     ragged requests over two slots, then a priority arrival that evicts
     one; streams and counts equal the JAX engine's."""
     jc, tc = jsmoke(arch), get_smoke_config(arch)
-    jp = get_family(jc).init(jc, jax.random.key(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    jp = jax_init(jc)
+    tp = params_from_numpy(jp)
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
     dcfg = dict(num_actions=3, budget=6, lanes=2, search_depth=2,
                 rollout_len=2, **CARRIES["both"])
     kw = dict(max_batch=2, max_seq=16, decode="mcts")

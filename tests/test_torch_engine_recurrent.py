@@ -19,13 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro import serving as JS  # noqa: E402
 from repro.configs import get_smoke_config as jsmoke  # noqa: E402
-from repro.models.base import get_family  # noqa: E402
 from repro_torch import serving as TS  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -55,8 +56,9 @@ def _drain(eng, mod, specs, preempt=None):
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
 def test_engine_streams_match_jax(arch, mode):
     jc, tc = jsmoke(arch), get_smoke_config(arch)
-    jp = get_family(jc).init(jc, jax.random.key(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    jp = jax_init(jc)
+    tp = params_from_numpy(jp)
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
     kw = dict(max_batch=2, max_seq=16, decode=mode)
     je = JS.ServingEngine(jc, jp, JS.EngineConfig(
         mcts=JS.MCTSDecodeConfig(**DCFG), **kw))
@@ -80,8 +82,9 @@ def test_engine_dead_slots_keep_stepping_past_max_seq(arch):
     slots' positions pass max_seq, which must not run zamba2's KV cache
     out (the JAX package drops those writes) nor change any stream."""
     jc, tc = jsmoke(arch), get_smoke_config(arch)
-    jp = get_family(jc).init(jc, jax.random.key(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    jp = jax_init(jc)
+    tp = params_from_numpy(jp)
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
     kw = dict(max_batch=2, max_seq=16, decode="greedy")
     je = JS.ServingEngine(jc, jp, JS.EngineConfig(**kw))
     te = TS.ServingEngine(tc, tp, TS.EngineConfig(**kw), device="cpu")

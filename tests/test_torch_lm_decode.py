@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.domains import lm_decode as TD  # noqa: E402
 from repro_torch.models.base import ModelConfig as TMC  # noqa: E402
 from repro_torch.search import check_domain  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -35,8 +36,8 @@ DOM_KW = dict(num_actions=3, search_depth=2, rollout_len=2)
 
 @pytest.fixture(scope="module")
 def params():
-    jp = get_family(JCFG).init(JCFG, jax.random.key(0))
-    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    jp = jax_init(JCFG)
+    return jax.tree_util.tree_map(jnp.asarray, jp), params_from_numpy(jp)
 
 
 def _domains(params, cached, **kw):

@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import base as TB  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -48,8 +49,9 @@ def _pair(arch=None, **over):
     else:
         jc, tc = jsmoke(arch), get_smoke_config(arch)
     jc, tc = jc.replace(**over), tc.replace(**over)
-    jp = JB.get_family(jc).init(jc, jax.random.key(0))
-    return jc, tc, jp, params_from_numpy(_np(jp))
+    jp = jax_init(jc)
+    return jc, tc, jax.tree_util.tree_map(jnp.asarray, jp), \
+        params_from_numpy(jp)
 
 
 def test_configs_and_model_config_match_jax():

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import base as TB  # noqa: E402
 from repro_torch.models import zamba2 as TZ  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -47,7 +48,7 @@ def _pair(arch, **over):
     """(JAX cfg, port cfg, JAX params, port params), noisy weights."""
     jc, tc = jsmoke(arch).replace(**over), get_smoke_config(arch) \
         .replace(**over)
-    jp = _noisy(JB.get_family(jc).init(jc, jax.random.key(0)))
+    jp = _noisy(jax_init(jc))
     return jc, tc, jax.tree_util.tree_map(jnp.asarray, jp), \
         params_from_numpy(jp)
 

@@ -50,6 +50,7 @@ from repro_torch.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as twops  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models.base import get_family as tfamily  # noqa: E402
+from torch_parity import jax_init  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -93,7 +94,7 @@ def _jax_fns(arch):
 
 def _start(arch):
     jcfg = jget(arch)
-    jp = jfamily(jcfg).init(jcfg, jax.random.key(0))
+    jp = jax.tree_util.tree_map(jnp.asarray, jax_init(jcfg))
     jo = jadamw().init(jp)
     tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
     to = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jo))

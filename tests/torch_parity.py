@@ -1,8 +1,10 @@
 """Shared helpers of the ``test_torch_*`` parity tests: JAX-drawn playout
-randomness and JAX <-> port arena comparison, all through numpy."""
+randomness, JAX <-> port arena comparison, all through numpy, and the JAX
+families' initial weights made once per process."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,23 @@ INT_PLANES = ("visits", "vloss", "unobs", "parent", "action", "children",
 # the port adds in the scatter-add's order.  A few ulps of a sum of at most
 # `lanes` rewards in [0, 1] bound the difference.
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(cfg, seed: int):
+    from repro.models.base import get_family
+    jp = jax.jit(get_family(cfg).init, static_argnums=0)(
+        cfg, jax.random.key(seed))
+    return jax.tree_util.tree_map(np.asarray, jp)
+
+
+def jax_init(cfg, seed: int = 0):
+    """The JAX family's ``init(cfg, jax.random.key(seed))``, jitted (one
+    compile, where the eager call dispatches every op), as numpy leaves,
+    made once per process for each config and seed.  The tree is shared:
+    callers convert it (``jnp.asarray``, ``params_from_numpy``) and never
+    write to it."""
+    return _jax_init(cfg, seed)
 
 
 def jax_draws(rng, dims, game_depth: int, num_actions: int) -> torch.Tensor:
